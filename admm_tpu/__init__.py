@@ -1,4 +1,4 @@
-"""admm_tpu: a TPU-native ADMM convex-optimization framework.
+"""admm_tpu: an ADMM convex-optimization framework in JAX.
 
 Brand-new JAX/XLA implementation of the full capability surface of the
 MATLAB reference library PeterSutor/ADMM-Project (see SURVEY.md): a generic

@@ -1,57 +1,42 @@
-"""Weak-scaling benchmark + ICI/DCN cost model for consensus-ADMM LASSO.
+"""Weak-scaling benchmark for consensus-ADMM LASSO, and the collective
+microbenchmark.
 
 BASELINE.md target: >= 80% weak-scaling efficiency at 2+ workers.  Rows
-grow with the shard count (constant per-device work: base_rows per
-shard); efficiency(W) = iters_per_sec(W) / iters_per_sec(1).  On a single
-host this runs over the virtual CPU mesh (the cluster-free analog of the
-reference's local pool, SURVEY.md section 4); on a pod it runs over real
-chips via jax.distributed.
+grow with the shard count (constant per-device work: rows_per_shard per
+shard); efficiency(W) = iters_per_sec(W) / iters_per_sec(1).  It runs on
+the real devices of the default platform (e.g. the four GPUs of one host,
+whose collectives XLA hands to NCCL) and stops when there is no GPU.
+``--cpu-devices N`` asks instead for N virtual CPU devices — a check of
+the sharded programs, not a scaling measurement.
 
-Because multi-chip hardware is not attached here, the module also ships
-the PRE-POD evidence chain (VERDICT r4 next #7):
+``collective_microbench`` times the consensus iteration's one collective
+(the mean over the shard axis) as an isolated repeated program on the
+available mesh: on one device this is the zero-communication floor (the
+stacked mean's compute), on several the real all-reduce.
 
-  * ``collective_microbench`` — times the consensus iteration's one
-    collective (the mean over the shard axis) as an isolated repeated
-    program on whatever mesh is available: on the single real chip this
-    measures the ZERO-COMM floor (the stacked mean's compute cost);
-    on a pod the same function measures the real all-reduce.
-  * ``predict_weak_scaling`` — an analytic ring-all-reduce cost model
-    (latency + bandwidth per tier, constants from public v5e specs and
-    the scaling-book mental model) fed with the MEASURED single-chip
-    per-iteration compute time, producing the predicted efficiency for
-    an 8-chip ICI slice and a 2-host DCN split — so the first real pod
-    run validates a prediction instead of producing the first number.
+Prints one JSON line per shard count plus a summary line, each with the
+platform and device kind it ran on.
 
-Prints one JSON line per shard count plus a summary line.
-
-Usage:  python benchmarks/scaling.py [--devices 8] [--rows-per-shard 4096]
-        [--cols 512] [--iters 300] [--predict]
+Usage:  python -m admm_tpu scaling [--devices 4] [--rows-per-shard 4096]
+        [--cols 512] [--iters 300] [--cpu-devices N]
+(``python -m admm_tpu.benchmarks.scaling`` takes the same options.)
 """
 
 from __future__ import annotations
 
 import json
-import sys
-
-# ---- interconnect tiers (public numbers; see docs/RESULTS.md r5) ----------
-# ici_v5e: each v5e chip has 4 ICI links at 400 Gbps aggregate ~1600 Gbps
-#   (~200 GB/s/chip); a ring all-reduce streams ~45 GB/s per direction per
-#   link with ~1 us per-hop latency (scaling-book mental model).
-# dcn: ~100 Gbps host NIC (12.5 GB/s) with ~50 us round latency — the
-#   2-host consensus split crosses this tier.
-_TIERS = {
-    "ici_v5e": {"lat_us": 1.0, "gbps": 45.0},
-    "dcn": {"lat_us": 50.0, "gbps": 12.5},
-}
 
 
 def weak_scaling(device_counts=(1, 2, 4, 8), rows_per_shard=4096, cols=512,
                  iters=300, quiet=False):
+    import jax
     import numpy as np
 
     from admm_tpu import ADMMConfig
     from admm_tpu.parallel import consensus_lasso, make_mesh
 
+    dev = {"platform": jax.devices()[0].platform,
+           "device_kind": jax.devices()[0].device_kind}
     cfg = ADMMConfig(maxiters=iters, domaxiters=True)
     results = {}
     for W in device_counts:
@@ -70,25 +55,24 @@ def weak_scaling(device_counts=(1, 2, 4, 8), rows_per_shard=4096, cols=512,
                 "devices": W,
                 "rows": m,
                 "cols": cols,
-                "value": round(ips, 2),
+                "value": ips,
                 "unit": "iter/s",
+                **dev,
             }))
     base = results[min(results)]
     effs = {W: results[W] / base for W in results}
     if not quiet:
-        import jax
-
-        virtual = jax.devices()[0].platform == "cpu"
         line = {
             "metric": "weak_scaling_efficiency",
-            "efficiency": {str(W): round(e, 3) for W, e in effs.items()},
+            "efficiency": {str(W): e for W, e in effs.items()},
             "target": 0.8,
+            **dev,
         }
-        if virtual:
+        if dev["platform"] == "cpu":
             # Virtual host-platform devices share the physical cores:
             # every extra "device" adds real work to the same silicon, so
             # efficiency here validates CORRECTNESS of the sharded
-            # program, not scaling.  Run on a pod slice for real numbers.
+            # program, not scaling.  Run on several GPUs for real numbers.
             line["caveat"] = "virtual CPU devices share one host; not a scaling measurement"
         print(json.dumps(line))
     return results, effs
@@ -142,8 +126,9 @@ def collective_microbench(payload_cols=(512, 4096, 65536), inner=256,
             "metric": "collective_mean_roundtrip",
             "devices": W,
             "payload_floats": n,
-            "us_per_collective": round(best / inner * 1e6, 3),
+            "us_per_collective": best / inner * 1e6,
             "platform": jax.devices()[0].platform,
+            "device_kind": jax.devices()[0].device_kind,
         }
         if W == 1:
             row["note"] = "single device: zero-comm floor (stacked mean)"
@@ -153,146 +138,38 @@ def collective_microbench(payload_cols=(512, 4096, 65536), inner=256,
     return rows
 
 
-def _ring_allreduce_us(payload_bytes, W, tier):
-    """Standard ring all-reduce cost: 2(W-1)/W payload passes over the
-    link bandwidth + 2(W-1) hop latencies."""
-    t = _TIERS[tier]
-    bw_us = 2.0 * (W - 1) / W * payload_bytes / (t["gbps"] * 1e3)  # bytes/GBps -> us
-    return bw_us + 2.0 * (W - 1) * t["lat_us"]
-
-
-def predict_weak_scaling(t_compute_us, n, rounds_per_iter=2,
-                         scenarios=(("ici_v5e", 8), ("dcn", 2)),
-                         quiet=False):
-    """Predicted weak-scaling efficiency from the measured single-chip
-    per-iteration compute time.
-
-    ``t_compute_us``: measured per-iteration device time at the
-    per-shard problem size (e.g. the consensus_lasso W=1 matrix row).
-    ``n``: consensus variable width (the collective payload is ~2n f32
-    + scalar norms, sent as ``rounds_per_iter`` sequential collective
-    rounds).  Efficiency(W) = t_compute / (t_compute + t_collective) —
-    per-shard compute is constant in weak scaling, so ONLY the
-    collective eats efficiency.
-    """
-    out = []
-    for tier, W in scenarios:
-        coll = (rounds_per_iter * _ring_allreduce_us(4.0 * n, W, tier))
-        eff = t_compute_us / (t_compute_us + coll)
-        row = {
-            "metric": "predicted_weak_scaling_efficiency",
-            "tier": tier,
-            "devices": W,
-            "payload_floats_per_round": n,
-            "t_compute_us": round(t_compute_us, 2),
-            "t_collective_us": round(coll, 2),
-            "efficiency": round(eff, 3),
-            "target": 0.8,
-            "meets_target": bool(eff >= 0.8),
-        }
-        out.append(row)
-        if not quiet:
-            print(json.dumps(row))
-    return out
-
-
-def breakeven_table(n=512, lanes=(1, 8, 64), quiet=False):
-    """Where the >= 80% weak-scaling target holds, per tier.
-
-    Efficiency >= 0.8 needs t_compute >= 4 x t_collective.  Batched
-    consensus lanes (consensus_lasso_batch) multiply the per-round
-    payload by B but AMORTIZE the latency across lanes — per-lane
-    collective cost falls until bandwidth binds — and multiply
-    t_compute by ~B, so lanes are the main lever at small n.  Emits,
-    per (tier, lanes): the minimum per-iteration single-lane compute
-    time at which the target holds.
-    """
-    out = []
-    for tier, W in (("ici_v5e", 8), ("dcn", 2)):
-        for B in lanes:
-            coll = 2.0 * _ring_allreduce_us(4.0 * n * B, W, tier)
-            t_needed = 4.0 * coll / B  # per-lane compute to reach 80%
-            row = {
-                "metric": "weak_scaling_breakeven",
-                "tier": tier,
-                "devices": W,
-                "lanes": B,
-                "payload_floats_per_round": n * B,
-                "t_collective_us": round(coll, 2),
-                "min_per_lane_compute_us_for_80pct": round(t_needed, 2),
-            }
-            out.append(row)
-            if not quiet:
-                print(json.dumps(row))
-    return out
-
-
-def _ensure_devices(n: int) -> None:
-    """Standalone runs need a virtual CPU mesh when the default backend
-    has fewer than n devices; must run before jax initializes."""
+def main(devices=None, rows_per_shard=4096, cols=512, iters=300,
+         cpu_devices=None):
+    """The weak-scaling sweep over 1, 2, 4, 8 shards up to ``devices``
+    (default: every device).  Stops (NoGPUError) when there is no GPU,
+    unless ``cpu_devices`` asks for that many virtual CPU devices."""
     import os
 
-    flags = os.environ.get("XLA_FLAGS", "")
-    if "xla_force_host_platform_device_count" not in flags:
-        os.environ["XLA_FLAGS"] = (
-            flags + f" --xla_force_host_platform_device_count={n}"
-        ).strip()
+    from admm_tpu.benchmarks.device import setup
+
+    if cpu_devices:
+        # Must reach XLA before JAX initializes its backends.
+        flags = os.environ.get("XLA_FLAGS", "")
+        if "xla_force_host_platform_device_count" not in flags:
+            os.environ["XLA_FLAGS"] = (
+                f"{flags} --xla_force_host_platform_device_count="
+                f"{cpu_devices}").strip()
+    setup(cpu=bool(cpu_devices))
     import jax
 
-    if len(jax.devices()) < n:
-        raise SystemExit(
-            f"need {n} devices but the initialized backend has "
-            f"{len(jax.devices())}; start with JAX_PLATFORMS unset and let "
-            "this script configure the virtual CPU mesh, or pass --devices 1"
-        )
+    have = len(jax.devices())
+    want = have if devices is None else devices
+    if want > have:
+        raise SystemExit(f"need {want} devices, the {jax.devices()[0].platform}"
+                         f" platform has {have}")
+    counts = [w for w in (1, 2, 4, 8) if w <= want]
+    return weak_scaling(device_counts=counts, rows_per_shard=rows_per_shard,
+                        cols=cols, iters=iters)
 
 
 if __name__ == "__main__":
-    import argparse
+    import sys
 
-    ap = argparse.ArgumentParser()
-    ap.add_argument("--devices", type=int, default=8)
-    ap.add_argument("--rows-per-shard", type=int, default=4096)
-    ap.add_argument("--cols", type=int, default=512)
-    ap.add_argument("--iters", type=int, default=300)
-    ap.add_argument("--predict", action="store_true",
-                    help="collective microbench + ICI/DCN efficiency "
-                         "prediction (runs on the default backend, e.g. "
-                         "the real chip)")
-    ap.add_argument("--t-compute-us", type=float, default=None,
-                    help="measured single-chip per-iteration compute time "
-                         "for --predict (default: time it here via the "
-                         "W=1 consensus run)")
-    a = ap.parse_args()
-    if a.predict:
-        collective_microbench()
-        t_us = a.t_compute_us
-        if t_us is None:
-            import numpy as np
+    from admm_tpu.__main__ import main as cli
 
-            from admm_tpu import ADMMConfig
-            from admm_tpu.parallel import consensus_lasso, make_mesh
-
-            rng = np.random.default_rng(0)
-            D = rng.standard_normal(
-                (a.rows_per_shard, a.cols)).astype(np.float32)
-            s = rng.standard_normal(a.rows_per_shard).astype(np.float32)
-            cfgp = ADMMConfig(maxiters=a.iters, domaxiters=True)
-            consensus_lasso(D, s, 0.1, cfgp, nshards=1)  # compile
-            np.asarray(consensus_lasso(D, s, 0.1, cfgp, nshards=1).xopt)
-            r = consensus_lasso(D, s, 0.1, cfgp, nshards=1)
-            t_us = r.runtime / a.iters * 1e6
-            print(json.dumps({"metric": "measured_t_compute",
-                              "us_per_iter": round(t_us, 2),
-                              "shape": f"{a.rows_per_shard}x{a.cols}"}))
-        predict_weak_scaling(t_us, a.cols)
-        breakeven_table(a.cols)
-        sys.exit(0)
-    if a.devices > 1:
-        import jax
-
-        jax.config.update("jax_platforms", "cpu")
-        _ensure_devices(a.devices)
-    counts = [w for w in (1, 2, 4, 8) if w <= a.devices]
-    weak_scaling(device_counts=counts, rows_per_shard=a.rows_per_shard,
-                 cols=a.cols, iters=a.iters)
+    raise SystemExit(cli(["scaling", *sys.argv[1:]]))

@@ -41,7 +41,7 @@ class ADMMConfig:
     - ``adaptive``: experimental adaptive rho (admm.m:51, 724-741).
     - ``objevals``: record the objective each iteration (admm.m:66, 602-605).
 
-    TPU additions beyond the reference:
+    Additions beyond the reference:
 
     - ``nanguard``: abort (results.diverged) as soon as the primal norm
       goes non-finite, instead of burning the rest of the iteration
@@ -58,7 +58,7 @@ class ADMMConfig:
       sqrt(rbmu) imbalance — unsquare in the hook, or use
       parallel.consensus_admm, which handles this itself.
 
-    TPU-specific additions (no reference equivalent):
+    Further additions (no reference equivalent):
 
     - ``record_iterates``: also record full per-iteration x/z/u/w traces
       (the reference records these unconditionally, admm.m:607-610,
@@ -122,31 +122,21 @@ class ADMMConfig:
     quiet: bool = True
     record_iterates: bool = False
     jit: bool = True
-    # Iterations per while_loop step (TPU addition).  The device loop
-    # turnaround costs ~17 us/step on v5e — comparable to the whole
-    # iteration body for small/mid problems — so unrolling K reference
-    # iterations into one loop step amortizes it (up to ~2x at n~1024).
+    # Iterations per while_loop step (no reference analog).  Each device
+    # loop turn has a fixed cost that can rival a small iteration body,
+    # so unrolling K reference iterations into one loop step amortizes it.
     # Semantics are EXACT: sub-steps after convergence are computed but
     # discarded via done-masking, so results and step counts match
     # unroll=1 bit-for-bit; the only cost is up to K-1 wasted sub-steps
     # in the final loop turn (and K-times-larger compiled body).
     #
-    # "auto" lets each solver wrapper resolve a measured-good K for its
-    # iteration-body class (resolve_unroll below): GEMV-dominated bodies
-    # get a deep unroll (the dispatch-bound regime), heavy bodies
-    # (in-loop eigh / triangular sweeps) stay at 1, and paths where
-    # unrolling measured as a no-op (batched lanes) resolve to 1.
+    # "auto" lets each solver wrapper resolve K for its iteration-body
+    # class (resolve_unroll below): GEMV-dominated bodies get a deep
+    # unroll, heavy bodies (in-loop eigh / triangular sweeps) stay at 1,
+    # and batched lanes resolve to 1.
     # Calling the engine directly with "auto" resolves to the balanced
     # default (4) since the engine cannot classify a user prox.
     unroll: int | str = 1
-    # TPU matmul precision for the compiled loop: 'highest' (default)
-    # runs f32 matmuls at true f32 — the MXU's default bf16-pass mode
-    # corrupts the KKT/projection solvers (LP diverges; see
-    # docs/RESULTS.md round 2).  Free for the HBM-bound serial solvers.
-    # For the compute-bound BATCHED paths (models/paths.py) it is a
-    # real knob: 'default' trades a small accuracy floor for +66%
-    # batched throughput (v5e, B=128 lasso path).
-    matmul_precision: str = "highest"
 
     def __post_init__(self):
         if self.stopcond not in ("standard", "hnorm", "both"):
@@ -187,10 +177,6 @@ class ADMMConfig:
             raise ValueError("need aa_reg >= 0, aa_restart > 1, aa_gmax > 0")
         if not 0.0 <= self.stalltol < 1.0:
             raise ValueError(f"stalltol must be in [0, 1), got {self.stalltol}")
-        if self.matmul_precision not in ("default", "high", "highest"):
-            raise ValueError(
-                "matmul_precision must be default|high|highest, got "
-                f"{self.matmul_precision!r}")
         if isinstance(self.unroll, str):
             if self.unroll != "auto":
                 raise ValueError(
@@ -231,28 +217,26 @@ class ADMMConfig:
         return self.adaptive or self.rbadaptive
 
 
-# unroll='auto' resolution table, by iteration-body class.  Values are
-# MEASURED on v5e (docs/RESULTS.md round 2-3 unroll sweeps;
-# experiments/unroll_sweep{,_small}.py):
+# unroll='auto' resolution table, by iteration-body class.  The values
+# were chosen on an earlier accelerator and are not yet re-derived on
+# the H100 (ROADMAP §1.3; chip_smoke.py prints the headline lasso at
+# unroll 1, 16 and 64):
 #
 # - 'gemv': bodies that are a handful of GEMVs + vector ops (lasso, lad,
-#   huberfit, model, basis pursuit, serial SVM, LP/QP in affine mode).
-#   These are dispatch-bound at one-iteration-per-step; K=16 recovers
-#   most of the gain at interactive compile times (K=64 adds ~10-20%
-#   more on long runs but compiles for minutes — opt in explicitly).
+#   huberfit, model, basis pursuit, serial SVM, LP/QP in affine mode),
+#   where the loop turn is a large share of an iteration.  K=64 compiles
+#   a much larger program — opt in explicitly.
 # - 'heavy': bodies dominated by an in-loop eigh / Newton-Schulz /
-#   triangular sweep (covariance selection, LP/QP kkt_mode='chol').
-#   Masked redundant sub-steps cost more than the turnaround they save
-#   (-25% measured at K=4 for the chol KKT path): stay at 1.
+#   triangular sweep (covariance selection, LP/QP kkt_mode='chol'):
+#   masked redundant sub-steps can cost more than the turn they save.
 # - 'batched': vmapped instance-batched lanes already amortize the loop
-#   turnaround (443k vs 444k inst-iters/s at K=1 vs 4): stay at 1.
-# - 'default': unknown body (engine called directly with a user prox) —
-#   the balanced matrix-bench setting.
+#   turn over B lanes.
+# - 'default': unknown body (engine called directly with a user prox).
 _AUTO_UNROLL = {"gemv": 16, "heavy": 1, "batched": 1, "default": 4}
 
 
 def resolve_unroll(config: ADMMConfig, body: str = "default") -> ADMMConfig:
-    """Resolve ``unroll='auto'`` to a measured-good K for the given
+    """Resolve ``unroll='auto'`` to the table's K for the given
     iteration-body class (no-op for concrete ints).  Wrappers call this
     with their body class before handing the config to the engine, so
     the compiled-runner caches only ever see concrete unroll values."""

@@ -2,7 +2,7 @@
 
 No reference analog — the reference (PeterSutor/ADMM-Project) is a MATLAB
 solver library and cannot differentiate its solution map.  This module is
-the capability the engine's TPU-native design buys for free: because prox
+the capability the engine's compiled design buys for free: because prox
 operators are pure traced functions of a ``data`` pytree (the caching
 contract, engine.py:admm docstring), the solution map
 
@@ -95,7 +95,7 @@ import numpy as np
 from jax import lax
 
 from .config import ADMMConfig, resolve_unroll
-from .engine import Hooks, make_admm_runner, _with_matmul_precision
+from .engine import Hooks, make_admm_runner, _highest_precision
 from .linop import as_linop
 
 
@@ -402,7 +402,7 @@ def make_implicit_solver(
             u1 = u + (A_op.mv(x1) + B_op.mv(z1) - c_arr)
         return (x1, z1, u1)
 
-    one_iter = _with_matmul_precision(_one_iter, config.matmul_precision)
+    one_iter = _highest_precision(_one_iter)
 
     def _resolve_c(c, dt):
         c_arr = jnp.asarray(c, dt)
@@ -506,7 +506,7 @@ def make_implicit_consensus_solver(
         ui1 = ui + (xhat - z1[None, :])
         return (xi1, z1, ui1)
 
-    one_iter = _with_matmul_precision(_one_iter, config.matmul_precision)
+    one_iter = _highest_precision(_one_iter)
 
     def _forward(theta, state0):
         (data,) = theta
@@ -599,7 +599,7 @@ def make_implicit_unwrapped_solver(
         ui1 = ui + (Axr - zi1) * mask
         return (x1, zi1, ui1)
 
-    one_iter = _with_matmul_precision(_one_iter, config.matmul_precision)
+    one_iter = _highest_precision(_one_iter)
 
     def _forward(theta, state0):
         (data,) = theta

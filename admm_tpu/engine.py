@@ -1,6 +1,6 @@
 """The core ADMM engine: a single jitted ``lax.while_loop`` program.
 
-TPU-native re-design of the reference's interpreted main loop
+A compiled re-design of the reference's interpreted main loop
 (reference: admm.m:496-743).  The whole solve — x-prox, relaxation, z-prox,
 dual update, fast/accelerated momentum + restart, residual norms, Boyd and
 H-norm stopping rules, divergence monitor, adaptive rho — is traced once and
@@ -26,7 +26,7 @@ Semantics preserved from the reference:
   * hooks: altu (admm.m:553-560), specialnorms (admm.m:612-616),
     obj/objevals (admm.m:602-605).
 
-TPU-first details:
+Compiled-program details:
   * Every state update is masked by the per-lane ``done`` flag, so the loop
     is correct under ``jax.vmap`` over problem instances (batched solves run
     until all lanes converge; finished lanes freeze).
@@ -67,21 +67,12 @@ class Constraint(NamedTuple):
 
 
 class Hooks(NamedTuple):
-    """Optional user hooks (reference admm.m:473-476, 553-560, 602-616).
-
-    ``fused_zu`` is a TPU-only performance hook with no reference analog:
-    for the common A=1, B=-1, c=0 splitting it computes the z-prox AND the
-    dual update in one pass — ``fused_zu(x, u, rho[, data]) -> (z, u)`` —
-    letting a Pallas kernel keep the vector state in VMEM (ops/kernels.py).
-    Used only under alg 0 with relax == 1 and no altu; the engine falls
-    back to prox_g + the standard dual update otherwise.
-    """
+    """Optional user hooks (reference admm.m:473-476, 553-560, 602-616)."""
 
     obj: Optional[Callable] = None          # obj(x, z) -> scalar
     altu: Optional[Callable] = None         # altu(u, Ax, Bz, c) -> u
     specialnorms: Optional[Callable] = None  # f(x,z,u,rho) -> (pnorm, dnorm)
     preprocess: Optional[Callable] = None   # run once host-side before solve
-    fused_zu: Optional[Callable] = None     # (x, u, rho[, data]) -> (z, u)
 
 
 class _Carry(NamedTuple):
@@ -177,7 +168,7 @@ def admm(
     ``shape_x`` / ``shape_z`` generalize nA/nB to matrix-valued iterates
     (covariance selection; reference admm.m:478-492).
 
-    TPU-first caching contract: when ``data`` (a pytree of problem
+    Caching contract: when ``data`` (a pytree of problem
     operands) is given, every callable — prox_f, prox_g and the hooks —
     takes it as an extra trailing argument and must be a *module-level
     function*, not a per-call closure.  The compiled runner is then cached
@@ -190,7 +181,7 @@ def admm(
     B = as_linop(B)
     # unroll='auto' from a direct engine call: the engine cannot classify
     # a user prox body, so resolve to the balanced default (wrappers
-    # resolve to their measured body class before calling here).
+    # resolve to their body class before calling here).
     config = resolve_unroll(config, "default")
 
     # --- shape/initial-state resolution (reference admm.m:79-259).
@@ -257,9 +248,6 @@ def admm(
             prox_f, prox_g, parallel, slices, nx=nx, nz=nz, mesh=mesh
         )
 
-    if hooks.fused_zu is not None:
-        _check_fused_splitting(A, B, c_arr)
-
     if hooks.preprocess is not None:
         # Hooks follow the data convention (trailing data arg when given).
         hooks.preprocess(data) if data is not None else hooks.preprocess()
@@ -289,42 +277,16 @@ def admm(
     return res
 
 
-def _check_fused_splitting(A, B, c=None):
-    """hooks.fused_zu assumes the plain splitting A = I, B = -I, c = 0 —
-    its dual update is u + x - z.  Any other A/B/c would make it silently
-    wrong, so refuse up front (must run where A/B/c are concrete, i.e.
-    outside jit)."""
-    from .linop import ScaledIdentityOp
-
-    def _is(op, val):
-        return isinstance(op, ScaledIdentityOp) and float(op.alpha) == val
-
-    if not (_is(A, 1.0) and _is(B, -1.0)):
-        raise ValueError(
-            "hooks.fused_zu requires the A=1, B=-1 splitting; got "
-            f"A={A!r}, B={B!r} — use the standard prox_g path instead"
-        )
-    if c is not None and bool(jnp.any(jnp.asarray(c) != 0)):
-        raise ValueError(
-            "hooks.fused_zu requires c = 0; got a nonzero c — use the "
-            "standard prox_g path instead"
-        )
-
-
-def _with_matmul_precision(fn, precision: str):
-    """Pin f32 matmuls to the configured precision inside the traced
-    program (ADMMConfig.matmul_precision): the TPU MXU's default f32
-    matmul uses bf16 passes, which corrupts the solver algebra (see
-    timed_solver's rationale in models/_common.py).  The serial solvers'
-    applies are HBM-bound GEMVs, so 'highest' is free there;
-    explicitly-bf16 streams are unaffected.  'default' is ALSO set
-    explicitly — the loop trace may run under timed_solver's ambient
-    'highest' context (for the one-time setup algebra), and the config
-    must win inside the loop."""
+def _highest_precision(fn):
+    """Pin f32 matmuls to full f32 inside the traced program: a lower
+    default (TF32 on the GPU's tensor cores) corrupts the solver algebra
+    (see timed_solver's rationale in models/_common.py) and failed the
+    f32 lasso oracle on the H100.  Explicitly-bf16 streams are
+    unaffected."""
 
     @functools.wraps(fn)
     def wrapper(*args):
-        with jax.default_matmul_precision(precision):
+        with jax.default_matmul_precision("highest"):
             return fn(*args)
     return wrapper
 
@@ -397,10 +359,9 @@ def freeze_helpers(frozen):
     ``buf.at[k].set(val)`` gated the same way — implemented by redirecting
     the write index OUT OF BOUNDS and dropping it (``mode='drop'``), so a
     frozen sub-step costs one scalar index select and no gather.  (The
-    two alternatives both measured slower on v5e: re-selecting whole (N,)
-    buffers per sub-step in the loop wrapper, and a per-slot
-    gather+select, which broke the VMEM-resident GEMV pipeline at K=64 —
-    headline 35.5k -> 28.6k iter/s.)  When ``frozen`` is the literal
+    alternatives — re-selecting whole (N,) buffers per sub-step, or a
+    per-slot gather+select — add a gather to every sub-step of the GEMV
+    pipeline.)  When ``frozen`` is the literal
     Python bool False (the K=1 path), both helpers are statically
     transparent, so the K=1 trace is unchanged.
     """
@@ -451,9 +412,8 @@ def _cached_runner(prox_f, prox_g, config: ADMMConfig, hooks: Hooks, jit: bool,
     """Cross-call runner cache (see the caching contract in ``admm``).
     Also covers the closure path: repeat solves with the SAME prox
     callables and config reuse the compiled program."""
-    runner = _with_matmul_precision(
-        _build_runner(prox_f, prox_g, config, hooks, has_data=has_data),
-        config.matmul_precision)
+    runner = _highest_precision(
+        _build_runner(prox_f, prox_g, config, hooks, has_data=has_data))
     return jax.jit(runner) if jit else runner
 
 
@@ -470,11 +430,8 @@ def make_admm_runner(prox_f, prox_g, config, A, B, hooks=Hooks(),
     config = resolve_unroll(config, "default")
     A = as_linop(A)
     B = as_linop(B)
-    if hooks.fused_zu is not None:
-        _check_fused_splitting(A, B)  # c is a runtime arg here; documented
-    run = _with_matmul_precision(
-        _build_runner(prox_f, prox_g, config, hooks, has_data=has_data),
-        config.matmul_precision)
+    run = _highest_precision(
+        _build_runner(prox_f, prox_g, config, hooks, has_data=has_data))
     if has_data:
         return lambda x0, z0, u0, c, data: run(x0, z0, u0, c, A, B, data)
     return lambda x0, z0, u0, c: run(x0, z0, u0, c, A, B, ())
@@ -507,19 +464,9 @@ def _build_runner(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, has_data: bool)
                 (lambda x, z, u, rho: hooks.specialnorms(x, z, u, rho, data))
                 if hooks.specialnorms else None
             )
-            fused_fn = (
-                (lambda x, u, rho: hooks.fused_zu(x, u, rho, data))
-                if hooks.fused_zu else None
-            )
         else:
             pf, pg = prox_f, prox_g
             obj_fn, altu_fn, norms_fn = hooks.obj, hooks.altu, hooks.specialnorms
-            fused_fn = hooks.fused_zu
-        # Fused z+dual path applies only to the plain splitting.
-        use_fused = (
-            fused_fn is not None and alg == 0 and not use_relax
-            and hooks.altu is None
-        )
         rdtype = x0.dtype
         rho0 = jnp.asarray(cfg.rho, rdtype)
         eps = jnp.finfo(rdtype).eps
@@ -603,21 +550,14 @@ def _build_runner(prox_f, prox_g, cfg: ADMMConfig, hooks: Hooks, has_data: bool)
                 Axhat = relax * A.mv(x) - (1.0 - relax) * (B.mv(zprev) - c)
                 Ax_for_g = Axhat
             u_for_g = u if alg == 0 else uhat
-            if use_fused:
-                # One-pass z-prox + dual update (Hooks.fused_zu docstring);
-                # the default updates below are skipped for u.
-                z, u_fused = fused_fn(x, u, rho)
-            else:
-                z = pg(Ax_for_g, z, u_for_g, rho)
+            z = pg(Ax_for_g, z, u_for_g, rho)
 
             Ax = A.mv(x)
             Bz = B.mv(z)
             Axr = Axhat if use_relax else Ax
 
             # ---- dual update (admm.m:538-560) ----------------------------
-            if use_fused:
-                u = u_fused
-            elif altu_fn is not None:
+            if altu_fn is not None:
                 u = altu_fn(u, Axr, Bz, c)
             else:
                 base = u if alg == 0 else uhat

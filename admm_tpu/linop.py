@@ -52,7 +52,7 @@ class ScaledIdentityOp:
 
 @jax.tree_util.register_pytree_node_class
 class DenseOp:
-    """A dense matrix operator; mv/rmv are MXU matmuls."""
+    """A dense matrix operator; mv/rmv are matmuls."""
 
     def __init__(self, M):
         self.M = M
@@ -122,7 +122,7 @@ class DiffOp:
 class StackIDiffOp:
     """The fused-lasso stacked operator A = [I; D] applied matrix-free:
     ``mv(x) = concat([x, Dx])`` (2n,), ``rmv(v) = v[:n] + D^T v[n:]`` —
-    O(n) VPU work instead of a dense (2n, n) GEMV per residual/dual
+    O(n) elementwise work instead of a dense (2n, n) GEMV per residual/dual
     evaluation (models/fusedlasso.py)."""
 
     def __init__(self, n: int):

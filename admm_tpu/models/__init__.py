@@ -1,6 +1,6 @@
 """Problem library: solver wrappers + proximal-operator registry.
 
-TPU-native analog of the reference's solvers/ directory and the
+JAX analog of the reference's solvers/ directory and the
 getProxOps.m string switch (getProxOps.m:52-917).  Each module exposes
 ``make_prox_ops(...)`` (the registry entry) and a solver entry point with
 the reference solver's signature.

@@ -77,12 +77,12 @@ def timed_solver(fn):
     (reference: tic/toc around each solver, e.g. solvers/lasso.m:117,243).
 
     Also pins matmuls to full f32 precision for the solver's setup
-    computations (Grams, factorizations): the TPU MXU's default f32
-    matmul runs bf16 passes, which measurably corrupts the solver
-    algebra — the LP KKT projection diverges outright and the QP/BP
-    oracles miss their f32 bars.  The setup GEMMs are one-time and the
-    per-iteration applies are HBM-bound GEMVs, so full precision is
-    free in wall-clock (verified in BENCH_MATRIX.json).  Explicitly
+    computations (Grams, factorizations): a lower default f32 matmul
+    precision (bf16 passes on some accelerators, TF32 on the GPU)
+    corrupts the solver algebra — the LP KKT projection diverges
+    outright and the QP/BP oracles miss their f32 bars.  The setup GEMMs
+    are one-time and the per-iteration applies are memory-bound GEMVs,
+    so full precision costs little in wall-clock.  Explicitly
     bf16 inputs (FatShiftSolver streams) are unaffected — the precision
     flag only governs how f32 inputs are decomposed."""
 

@@ -12,9 +12,9 @@ z-update:  soft_threshold(u + x, 1/rho)
 Requires an underdetermined (fat) D — the reference rejects square or
 overdetermined systems (basispursuit.m:192-203).
 
-TPU design: P and q are built once at setup by solving against the m-by-m
-Gram (Cholesky), after which every x-update is a single n-by-n GEMV on the
-MXU — identical structure to the reference's cached projection.
+Design: P and q are built once at setup by solving against the m-by-m
+Gram (Cholesky), after which every x-update is a single n-by-n GEMV —
+identical structure to the reference's cached projection.
 """
 
 from __future__ import annotations

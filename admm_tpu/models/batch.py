@@ -7,7 +7,7 @@ factorization that does not depend on it is shared:
 
 - ``lasso_batch``: sparse-code a batch of signals against ONE shared
   dictionary (one Gram/Woodbury factorization; the per-lane x-update
-  GEMVs become (B, m) x (m, n) GEMMs on the MXU).  This is the classic
+  GEMVs become (B, m) x (m, n) GEMMs).  This is the classic
   dictionary-coding workload — e.g. encoding image patches.
 - ``tv_batch``: denoise a batch of 1-D signals (the (I + rho D^T D)
   factorization is signal-independent, so all lanes share it).
@@ -25,7 +25,7 @@ factorization that does not depend on it is shared:
 
 The reference library solves instances one at a time in a MATLAB loop
 (e.g. solvers/lasso.m:77 called per signal); there is no batched
-equivalent to cite — this module is the TPU-native replacement for
+equivalent to cite — this module is the batched replacement for
 that outer loop.  Lanes converge independently: under vmap the engine's
 while_loop freezes finished lanes (per-lane predicate select), and
 ``steps`` reports each lane's own iteration count.
@@ -348,10 +348,10 @@ def covsel_batch(Ss, lams, config: ADMMConfig = ADMMConfig(), *,
     (models.covarianceselection.empirical_covariance, vmappable).
     The default x-prox is the Newton-Schulz evaluation
     (``prox_method='ns'``, ops/matfun.py): under vmap it is pure
-    batched n^3 GEMM work for the MXU, whereas a batched eigh
-    serializes badly on TPU.  ``prox_method='ns_fast'`` (or explicit
-    ``ns_coarse``/``ns_correct``) runs the square-root steps in
-    bf16-pass mode with full-precision residual corrections — see
+    batched n^3 GEMM work, with no batched eigh inside the loop.
+    ``prox_method='ns_fast'`` (or explicit ``ns_coarse``/``ns_correct``)
+    runs the square-root steps at the default matmul precision (TF32 on
+    the GPU) with full-precision residual corrections — see
     covarianceselection.  ``lams`` is a scalar or (B,) vector.
     """
     config = merge_config(config, overrides, body="batched")
@@ -392,7 +392,7 @@ def sdp_batch(Cs, A, bs, config: ADMMConfig = ADMMConfig(), *,
     ``bs`` is an (m,) vector (shared) or a (B, m) stack.  The Gram
     factorization of A is built once and broadcast; only (C, b) are
     mapped.  ``prox_method='ns'`` swaps the eigh PSD projection for
-    the Newton-Schulz matmul-only one — batched n^3 GEMMs for the MXU
+    the Newton-Schulz matmul-only one — batched n^3 GEMMs
     (see ops/matfun.psd_project_ns conditioning caveat).
     """
     config = merge_config(config, overrides, body="batched")
@@ -458,8 +458,8 @@ def rpca_batch(Ms, lams=None, config: ADMMConfig = ADMMConfig(), *,
     vmapped program — e.g. per-frame background/foreground separation.
     The SVT L-step becomes one batched svd per iteration — or, at
     ``prox_method='rsvd'`` with a ``rank`` bound, a batched
-    randomized-range sketch (matmul-only + small svds; 8-45x the exact
-    prox per lane on v5e).  ``lams`` is a scalar or (B,) vector
+    randomized-range sketch (matmul-only + small svds).  ``lams`` is a
+    scalar or (B,) vector
     (default: the per-shape 1/sqrt(max(m, n)) exact-recovery value)."""
     config = merge_config(config, overrides, body="batched")
     from .rpca import make_prox_ops as _rpca_make_prox_ops
@@ -569,7 +569,7 @@ def tv2d_batch(Ss, lams, config: ADMMConfig = ADMMConfig(), *,
     Sylvester-structured x-solve depend only on (m, n) and are shared;
     per-lane leaves are the image and its denoising strength
     (``lams`` scalar or (B,)).  The four per-lane (m,m)x(m,n) /
-    (m,n)x(n,n) matmuls batch into MXU GEMMs.
+    (m,n)x(n,n) matmuls batch into GEMMs.
     """
     from .totalvariation2d import make_prox_ops as _tv2d_make_prox_ops
 
@@ -714,12 +714,11 @@ def logreg_batch(D, ells, lams, config: ADMMConfig = ADMMConfig(), *,
 
     The default x-prox is the matrix-free Newton-CG
     (``inner='newton_cg'``, models/logreg.py): every CG matvec batches
-    into (B, m) x (m, n) GEMMs on the MXU with no (B, n, n) Hessian
-    stack — the dense path (``inner='newton'``, the accuracy
-    reference) batches (B, n, n) LU factorizations that serialize on
-    TPU (round-4 matrix: only 1.22x serial at B=8).  The default
-    (newton_steps=4, cg_steps=12) is one safety notch above the
-    measured knee: the round-5 device sweep found 3x12 through 5x20
+    into (B, m) x (m, n) GEMMs with no (B, n, n) Hessian stack — the
+    dense path (``inner='newton'``, the accuracy reference) batches
+    (B, n, n) LU factorizations.  The default (newton_steps=4,
+    cg_steps=12) is one safety notch above the knee: a sweep found 3x12
+    through 5x20
     all produce IDENTICAL convergence trajectories and final accuracy
     (relF 2.3e-7 vs dense) on the matrix shape — the engine warm-starts
     the prox from the previous iterate, so a few damped steps reach
@@ -759,7 +758,7 @@ def lp_batch(bs, D, Ss, config: ADMMConfig = ADMMConfig(), *,
     x = K1 b1 + x0 (models/linearprogram.py algebra): K1 depends only
     on (D, rho) and is shared, while the whole batch of offsets
     x0_i = W s_i is one setup GEMM.  Per-iteration work is a single
-    (B, n) x (n, n) GEMM — the same MXU shape as lasso_batch.
+    (B, n) x (n, n) GEMM — the same shape as lasso_batch.
     """
     from ..ops.solve import kkt_eq_solver
 
@@ -965,7 +964,7 @@ def svm_batch(D, ells, C, config: ADMMConfig = ADMMConfig(), *,
     is a scalar (shared) or (B,) per-classifier penalty.  The
     pseudo-inverse x-update matrix depends only on D and is shared, so
     the per-lane x/z-update GEMVs fuse into (B, m) x (m, n) GEMMs on
-    the MXU.  Warm start and stopping semantics match the serial
+    the card.  Warm start and stopping semantics match the serial
     driver (models/unwrapped.py: random x0/z0/u0 from ``seed``,
     stopcond='both', nodualerror) so each lane reproduces
     ``linearsvm(D, ells[i], C)`` run alone.

@@ -15,13 +15,11 @@ x-update:  eigendecompose rho (Z - U) - S = Q diag(e) Q^T,
            X = Q diag((e + sqrt(e^2 + 4 rho)) / (2 rho)) Q^T
 z-update:  soft_threshold(U + X, lambda / rho)   (matrix-elementwise)
 
-TPU design: two x-prox evaluation strategies, selected by
-``prox_method``:
+Design: two x-prox evaluation strategies, selected by ``prox_method``:
 
 - ``'eigh'`` (default, exact): per-iteration symmetric eigh; batches
-  under vmap, reconstruction matmuls hit the MXU, but the
-  eigendecomposition itself is latency-bound on TPU.
-- ``'ns'`` (TPU performance mode): the same spectral function evaluated
+  under vmap, with the reconstruction as matmuls.
+- ``'ns'`` (matmul-only mode): the same spectral function evaluated
   as (W + sqrt(W^2 + 4 rho I)) / (2 rho) with a Newton-Schulz matrix
   square root (ops/matfun.py) — pure n^3 matmul work, no eigh inside
   the loop.  ``ns_iters`` (static, default 20) covers kappa(W^2+4rho I)
@@ -78,21 +76,18 @@ def make_prox_ops(S, lam, config: ADMMConfig = ADMMConfig(), *,
 
     ``prox_method='ns'`` swaps the eigh x-prox for the Newton-Schulz
     matmul-only evaluation (``ns_iters`` square-root steps, static).
-    ``ns_coarse`` runs that many leading NS steps in the MXU's bf16-pass
-    mode and ``ns_correct`` appends that many full-precision residual
-    corrections (ops/matfun.ns_sqrtm): the measured fast recipe is
-    ns_coarse=ns_iters, ns_correct=2 — bf16-class speed at near-f32
-    accuracy (experiments/covsel_tail_probe.py).
+    ``ns_coarse`` runs that many leading NS steps at the default matmul
+    precision (TF32 on the GPU) and ``ns_correct`` appends that many
+    full-precision residual corrections (ops/matfun.ns_sqrtm): the fast
+    recipe is ns_coarse=ns_iters, ns_correct=2.
     """
     if prox_method not in ("eigh", "ns", "ns_fast"):
         raise ValueError(
             f"prox_method must be 'eigh', 'ns' or 'ns_fast', got {prox_method!r}")
     if prox_method == "ns_fast":
-        # The measured v5e recipe: ALL square-root steps in bf16-pass
-        # mode + 2 full-precision residual corrections — same final
-        # accuracy as the all-full-precision NS (rel-F ~1.6e-7 vs its
-        # 1.75e-7 against eigh) at 1.9-2.6x its speed, 10.8-11.8x eigh
-        # (n=512-1024, experiments/covsel_tail_probe.py round 4).
+        # ALL square-root steps at the default matmul precision + 2
+        # full-precision residual corrections: the final accuracy of the
+        # all-full-precision NS (chip_smoke.py holds it to eigh's bar).
         ns_coarse, ns_correct = ns_iters, max(int(ns_correct), 2)
     S = jnp.asarray(S)
     data = {"S": S, "lam": jnp.asarray(lam, S.dtype)}
@@ -130,11 +125,11 @@ def covarianceselection(D=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
     (covarianceselection.m:145).  Iterates are n-by-n matrices with zero
     initial state (covarianceselection.m:164-166).
 
-    ``prox_method='ns'`` selects the matmul-only Newton-Schulz x-prox —
-    the TPU performance mode (no eigh inside the compiled loop);
-    ``'ns_fast'`` additionally runs the square-root steps in the MXU's
-    bf16-pass mode with 2 full-precision residual corrections — the
-    same final accuracy at ~2x the 'ns' speed (make_prox_ops).
+    ``prox_method='ns'`` selects the matmul-only Newton-Schulz x-prox
+    (no eigh inside the compiled loop); ``'ns_fast'`` additionally runs
+    the square-root steps at the default matmul precision (TF32 on the
+    GPU) with 2 full-precision residual corrections — the same final
+    accuracy (make_prox_ops).
     """
     if D is None:
         # Zero-arg demo mode (reference solvers, e.g. lasso.m:122-129).

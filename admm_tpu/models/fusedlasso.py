@@ -12,7 +12,7 @@ time); the ADMM splitting STACKS both:
              — the rho-shifted solve is eig-folded ONCE (the TV dense
              pattern), one n-by-n GEMV per iteration
     z-step:  soft-threshold with a per-row threshold vector
-             [lam1/rho ... ; lam2/rho ...] — still one fused VPU pass
+             [lam1/rho ... ; lam2/rho ...] — still one fused elementwise pass
 
 Degenerate cases give exact oracles: lam2 = 0 reduces to elementwise
 soft-thresholding of s (closed form), lam1 = 0 reduces to the TV

@@ -6,7 +6,7 @@ soft-thresholding, getProxOps.m:933-938); standard ADMM formulation per
 Boyd et al. §6.4.  The x-update is the shared least-squares prox
 (lasso.make_ls_xprox); the z-update is group-wise block soft-thresholding
 (ops/prox.py:block_soft_threshold) computed with static-shape segment
-reductions, so uneven groups cost the same fused VPU pass as even ones.
+reductions, so uneven groups cost the same fused elementwise pass as even ones.
 
 ``groups`` accepts any of
   - an int g: g equal consecutive groups (n must divide),

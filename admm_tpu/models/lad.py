@@ -11,9 +11,9 @@ z-update:  soft_threshold(D x + u - s, 1/rho)
            (relaxation-aware variant consumes Axhat directly, selected by
            config.relax — the reference's args.userelax, lad.m:124-126)
 
-TPU design: the x-update is rho-independent, so the normal-equations
+Design: the x-update is rho-independent, so the normal-equations
 pseudo-inverse (D^T D)^{-1} D^T is materialized once at setup; every
-x-update then is a single m->n GEMV on the MXU instead of the reference's
+x-update then is a single m->n GEMV instead of the reference's
 pair of triangular solves per iteration.
 """
 

@@ -11,9 +11,9 @@ x-update:  (D^T D + rho I)^{-1} (D^T s + rho (z - u))
            (getProxOps.m:1198-1205).
 z-update:  soft_threshold(x + u, lambda / rho)
 
-TPU design: the reference's cached Cholesky + lazy rho refactorization
+Design: the reference's cached Cholesky + lazy rho refactorization
 becomes a one-time symmetric eigendecomposition whose application is pure
-MXU matmul work and is valid for every runtime rho (ops/solve.py); with
+matmul work and is valid for every runtime rho (ops/solve.py); with
 static rho the inverse is materialized so each x-update is a single GEMV.
 Prox operators are module-level functions over a ``data`` pytree, so the
 compiled solver is cached across calls (engine caching contract).
@@ -60,13 +60,6 @@ def _prox_g(x, z, u, rho, d):
 def _obj(x, z, d):
     # solvers/lasso.m objective: 1/2||Dx - s||^2 + lambda*||z||_1
     return 0.5 * jnp.sum((d["D"] @ x - d["s"]) ** 2) + d["lam"] * jnp.sum(jnp.abs(z))
-
-
-def _fused_zu(x, u, rho, d):
-    # One-pass Pallas z-prox + dual update (Hooks.fused_zu; ops/kernels.py).
-    from ..ops.kernels import fused_soft_threshold_dual
-
-    return fused_soft_threshold_dual(x, u, d["lam"] / rho)
 
 
 def make_ls_xprox(D, s, config: ADMMConfig, stream_dtype=None):
@@ -130,13 +123,11 @@ def _registry_entry(D, s, lam, config=ADMMConfig(), **_):
 
 @timed_solver
 def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *, stream_dtype=None,
-          use_fused_kernel=False, x0=None, z0=None, u0=None, parallel=False,
+          x0=None, z0=None, u0=None, parallel=False,
           nshards=None, mesh=None, **overrides) -> ADMMResults:
     """Solve LASSO (reference solvers/lasso.m:77).
 
     Constraint wiring matches lasso.m:226-239: A = 1, B = -1, c = 0 in R^n.
-    ``use_fused_kernel`` routes the z-prox + dual update through the fused
-    Pallas kernel (TPU; exact jnp fallback elsewhere).
 
     ``parallel=True`` mirrors the reference wrapper's options.parallel
     (lasso.m:148-150, 196-224): the solve runs as consensus ADMM with
@@ -160,10 +151,10 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *, stream
                 "per-shard — use parallel.consensus_lasso(xi0=, ui0=, z0=) "
                 "to warm-start it"
             )
-        if stream_dtype is not None or use_fused_kernel:
+        if stream_dtype is not None:
             raise ValueError(
-                "stream_dtype / use_fused_kernel are serial-path options; "
-                "the consensus solver does not consume them"
+                "stream_dtype is a serial-path option; the consensus "
+                "solver does not consume it"
             )
         from ..parallel import consensus_lasso
 
@@ -172,7 +163,7 @@ def lasso(D=None, s=None, lam=None, config: ADMMConfig = ADMMConfig(), *, stream
     D = jnp.asarray(D)
     n = D.shape[1]
     prox_f, prox_g, obj, data = make_prox_ops(D, s, lam, config, stream_dtype)
-    hooks = Hooks(obj=obj, fused_zu=_fused_zu if use_fused_kernel else None)
+    hooks = Hooks(obj=obj)
     return admm(
         prox_f, prox_g, config,
         A=1.0, B=-1.0, c=0.0, m=n, nA=n, nB=n,

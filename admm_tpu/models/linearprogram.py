@@ -13,9 +13,9 @@ x-update:  KKT solve [rho I, D^T; D, 0] [x; y] = [rho (z - u) - b; s],
            keep the x block
 z-update:  max(x + u, 0)
 
-TPU design: instead of LU-factoring the (n+m)^2 KKT matrix per rho change
+Design: instead of LU-factoring the (n+m)^2 KKT matrix per rho change
 (the reference's approach), the Schur-complement solver in ops/solve.py
-eliminates x analytically; per-iteration work is MXU matmuls plus one
+eliminates x analytically; per-iteration work is matmuls plus one
 m-by-m Cholesky, valid for any runtime rho.
 """
 
@@ -166,7 +166,7 @@ def linearprogram(b=None, D=None, s=None, config: ADMMConfig = ADMMConfig(),
         res.extra = {**(res.extra or {}), "ruiz_col": e, "ruiz_row": rr}
         return res
     # affine mode is a one-GEMV body ('gemv'); the factored chol apply is
-    # triangular-sweep dominated and measured SLOWER unrolled ('heavy').
+    # triangular-sweep dominated ('heavy').
     config = merge_config(config, overrides,
                           body="gemv" if kkt_mode == "affine" else "heavy")
     D = jnp.asarray(D)

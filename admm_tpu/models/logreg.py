@@ -9,11 +9,11 @@ logistic family; its nearest relatives are the SVM hinge solvers
 (getProxOps.m:202-310).  Kept in the reference's L4 wrapper shape
 (validate -> prox ops -> engine; e.g. solvers/lasso.m:77).
 
-TPU design: the x-prox has no closed form — it minimizes the smooth,
+Design: the x-prox has no closed form — it minimizes the smooth,
 rho-strongly-convex  f(x) + (rho/2)||x - (z - u)||^2  with a FIXED,
 trace-time-static number of damped Newton steps inside the compiled
 loop (a 'heavy' iteration body like covsel's eigh).  Each step builds
-the Hessian  D^T diag(w) D + rho I  (one m x n GEMM pair on the MXU)
+the Hessian  D^T diag(w) D + rho I  (one m x n GEMM pair)
 and solves it densely; a single objective-gated halving keeps the step
 safe without data-dependent control flow.  The z-prox is the shared
 soft threshold, so lam = 0 gives plain ridge-less logistic regression
@@ -107,9 +107,8 @@ def _newton_cg_xprox(x, v, rho, d, newton_steps: int, cg_steps: int):
     (D^T diag(w) D + rho I) s = grad by Jacobi-preconditioned CG whose
     matvec is two (m, n) GEMV/GEMM passes — NO (n, n) Hessian is ever
     formed.  This is what makes lane batching pay: under vmap the B
-    lanes' matvecs fuse into (B, m) x (m, n) GEMMs on the MXU, where
-    the dense path batches (B, n, n) LU factorizations that serialize
-    on TPU (round-4 matrix: logreg_batch B=8 read only 1.22x serial).
+    lanes' matvecs fuse into (B, m) x (m, n) GEMMs, where the dense
+    path batches (B, n, n) LU factorizations.
     The Jacobi diagonal D2^T w + rho costs one extra GEMV per Newton
     step (D2 = D*D cached at setup).  Same 3-level objective-gated
     damping as the consensus local prox (parallel/consensus.py)."""
@@ -187,8 +186,8 @@ def make_prox_ops(D, ell, lam, config: ADMMConfig = ADMMConfig(), *,
     ``inner`` selects the x-prox solver: ``'newton'`` forms and densely
     solves the (n, n) Hessian (the accuracy reference); ``'newton_cg'``
     is the matrix-free Jacobi-PCG Newton (two GEMV passes per CG step,
-    no Hessian) — the TPU performance mode for batched lanes, where the
-    dense path's (B, n, n) factorizations serialize (_newton_cg_xprox).
+    no Hessian) — the default for batched lanes, where the dense path
+    runs (B, n, n) factorizations (_newton_cg_xprox).
     """
     if inner not in ("newton", "newton_cg"):
         raise ValueError(

@@ -17,11 +17,11 @@ A = 1, B = -1, c = 0 over the splitting X = Z:
     Z-step:  SVT(X + U, 1/rho)          (singular value thresholding)
     U    +=  X - Z
 
-TPU design: the X-step is one fused elementwise select/blend; the SVT
+Design: the X-step is one fused elementwise select/blend; the SVT
 is the per-iteration heavy op — a full jnp.linalg.svd, or at
 ``prox_method='rsvd'`` the same randomized-range sketch as `rpca`
 (Halko-Martinsson-Tropp): project onto a k-dimensional random range
-with matmuls on the MXU and svd only the small (k, n) sketch, exact
+with matmuls and svd only the small (k, n) sketch, exact
 whenever the thresholded iterate has rank <= k.  The iterate converges
 to the planted rank, so a `rank` bound comfortably above it (plus the
 oversampling the wrapper adds) keeps the sketch exact while the cost
@@ -64,7 +64,7 @@ def svt(V, thresh):
 
 def randomized_svt(V, thresh, k: int, power_iters: int, seed: int):
     """Randomized-range SVT (Halko-Martinsson-Tropp): sketch a
-    k-dimensional range with MXU matmuls + QR, svd only the (k, n)
+    k-dimensional range with matmuls + QR, svd only the (k, n)
     sketch.  Exact when rank(SVT(V)) <= k (the sketch captures the
     whole thresholded spectrum); shared by `rpca` and matrix
     completion."""

@@ -8,9 +8,9 @@ zminModel (:989-1012):
     x <- (P^T P + rho I)^{-1} (P^T r + rho (z - u))
     z <- (Q^T Q + rho I)^{-1} (Q^T s + rho (x + u))
 
-TPU design: the reference's rho-keyed diagonal-perturbation cache
+Design: the reference's rho-keyed diagonal-perturbation cache
 (getProxOps.m:968-971) becomes either a materialized inverse (static rho:
-one MXU GEMV per prox) or a cached eigendecomposition (adaptive rho; see
+one GEMV per prox) or a cached eigendecomposition (adaptive rho; see
 ops/solve.py).  Prox operators are module-level functions over a ``data``
 pytree so the compiled solver is cached across calls.
 """

@@ -23,7 +23,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from ..config import ADMMConfig, resolve_unroll
-from ..engine import Hooks, _build_runner, _with_matmul_precision
+from ..engine import Hooks, _build_runner, _highest_precision
 from ..linop import as_linop
 from .lasso import make_prox_ops as _lasso_make_prox_ops
 from .linearsvm import make_prox_ops as _svm_make_prox_ops
@@ -34,10 +34,9 @@ def _highest_precision_setup(fn):
     """Run the path's setup algebra (Grams, eigendecompositions,
     empirical covariances) under the library's full-f32-precision
     invariant, exactly as timed_solver does for the serial solvers
-    (models/_common.py: the TPU default f32 matmul uses bf16 passes and
-    corrupts setup algebra).  The compiled loop's precision is still
-    governed by config.matmul_precision — _cached_path_runner sets it
-    explicitly inside, so the config wins there."""
+    (models/_common.py: a lower default f32 matmul precision corrupts
+    setup algebra); _cached_path_runner pins the compiled loop the same
+    way."""
 
     @functools.wraps(fn)
     def wrapper(*args, **kwargs):
@@ -56,9 +55,8 @@ def _cached_path_runner(prox_f, prox_g, obj, config: ADMMConfig,
     as 5 ms/batch-iteration of steady-state time).  The constraint
     operators A/B flow through as call-time arguments (in_axes=None) so
     matrix constraints (SVM's A = D) don't poison the cache key."""
-    run = _with_matmul_precision(
-        _build_runner(prox_f, prox_g, config, Hooks(obj=obj), has_data=True),
-        config.matmul_precision)
+    run = _highest_precision(
+        _build_runner(prox_f, prox_g, config, Hooks(obj=obj), has_data=True))
     axes = {k: (0 if k in mapped_keys else None) for k in data_keys}
     return jax.jit(jax.vmap(run, in_axes=(0, 0, 0, 0, None, None, axes)))
 
@@ -84,15 +82,10 @@ def lasso_path(D, s, lams, config: ADMMConfig = ADMMConfig(), **overrides) -> Pa
     Shares the one-time factorization across the path; maps only the
     scalar ``lam`` leaf of the data pytree.
 
-    Follows the library's full-f32-precision invariant
-    (ADMMConfig.matmul_precision='highest').  Unlike the serial solvers
-    (HBM-bound GEMVs where full precision is free), the batched
-    x-update is a compute-bound GEMM, so here the knob is a real trade
-    (measured on v5e at B=128/1500x5000): 'highest' 431k
-    instance-iters/s; ``'high'`` (3-pass) 498k (+16%) at an objective
-    gap of ~3e-05 — effectively f32-exact, the recommended speed tier;
-    ``'default'`` (bf16 passes) 750k (+74%) with up to percent-level
-    gaps the soft-threshold iteration tolerates.
+    Follows the library's full-f32-precision invariant: the batched
+    x-update GEMMs run at true f32.  (A TF32 loop missed the f32 lasso
+    oracle on the H100 — x off by 2e-3 relative — so no lower precision
+    is offered; ROADMAP §1.5.)
     """
     config = merge_config(config, overrides, body="batched")
     D = jnp.asarray(D)
@@ -129,9 +122,9 @@ def covsel_path(D, lams, config: ADMMConfig = ADMMConfig(), *,
 
     The batched x-prox defaults to the Newton-Schulz evaluation
     (``prox_method='ns'``, ops/matfun.py): under vmap it is pure batched
-    n^3 GEMM work for the MXU, whereas a batched eigh serializes badly
-    on TPU.  Matrix-valued iterates (L, n, n) exercise the engine's N-d
-    state support lane-parallel.  ``D`` holds samples in rows (the
+    n^3 GEMM work, with no batched eigh inside the loop.  Matrix-valued
+    iterates (L, n, n) exercise the engine's N-d state support
+    lane-parallel.  ``D`` holds samples in rows (the
     empirical covariance is shared across the path — only the scalar
     lambda is mapped).
     """

@@ -16,9 +16,9 @@ bounded  x-update:  (P + rho I)^{-1} (rho (z - u) - q)
 bounded  z-update:  clip(x + u, lb, ub)   (user altproxg overrides,
                     getProxOps.m case :545-666)
 
-TPU design: both re-factorization paths (the reference re-chol's whenever
+Design: both re-factorization paths (the reference re-chol's whenever
 rho changes, getProxOps.m:1400-1405, 1444-1453) are replaced by a one-time
-eigendecomposition of P; per-iteration work is MXU matmuls valid for any
+eigendecomposition of P; per-iteration work is matmuls valid for any
 runtime rho.
 """
 
@@ -202,7 +202,7 @@ def quadraticprogram(
                      "ruiz_row": rr if standard else None}
         return res
     # affine KKT fold = one-GEMV body ('gemv'); chol mode's triangular
-    # sweeps measured slower unrolled ('heavy').
+    # sweeps are 'heavy'.
     config = merge_config(config, overrides,
                           body="gemv" if kkt_mode == "affine" else "heavy")
     P = jnp.asarray(P)

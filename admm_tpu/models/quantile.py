@@ -13,7 +13,7 @@ Huber).  The structure is LAD's exactly: the x-update is the shared
 rho-independent normal-equations GEMV ((D^T D)^{-1} D^T materialized
 once, _common.normal_equations_data), and the z-update is the pinball
 prox — an ASYMMETRIC soft threshold at (tau/rho, (1-tau)/rho)
-(ops/prox.asymmetric_soft_threshold), still one fused VPU pass.
+(ops/prox.asymmetric_soft_threshold), still one fused elementwise pass.
 
 Oracle: quantile regression is an LP (minimize tau*1'p + (1-tau)*1'q
 s.t. Dx - s = p - q, p,q >= 0), so the tests check the ADMM objective

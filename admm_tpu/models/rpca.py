@@ -12,7 +12,7 @@ A = B = +1 and c = M:
     S-step:  soft_threshold(M - L - U, lam/rho)
     U     += L + S - M
 
-TPU design: the SVT is one jnp.linalg.svd per iteration — a 'heavy'
+Design: the SVT is one jnp.linalg.svd per iteration — a 'heavy'
 body (no unrolling; like the covsel eigh prox).  Everything else is
 fused elementwise work.  lam defaults to the theory value
 1/sqrt(max(m, n)) under which exact recovery holds for incoherent
@@ -44,7 +44,7 @@ def _prox_f(L, S, U, rho, d):
 @functools.lru_cache(maxsize=None)
 def _rsvd_prox_f(k: int, power_iters: int, seed: int):
     """Randomized-SVD SVT (Halko-Martinsson-Tropp range finder): project
-    onto a k-dimensional random range (matmuls on the MXU), SVD only the
+    onto a k-dimensional random range (matmuls), SVD only the
     small (k, n) sketch — O(m n k) instead of O(m n min(m, n)).  Exact
     when the thresholded matrix has rank <= k; PCP iterates converge to
     the planted low rank, so pick ``rank`` comfortably above it (the

@@ -24,12 +24,12 @@ x-prox:  affine projection.  With V = Z - U - C/rho,
 z-prox:  PSD-cone projection of X + U — exact eigh (ops/prox.py
          psd_project) or the Newton-Schulz matmul-only evaluation
          (ops/matfun.py psd_project_ns), the same eigh->NS swap as
-         covariance selection's TPU performance mode.
+         covariance selection's matmul-only mode.
 
 Constraint forms:
 
 - dense: ``A`` is an (m, n, n) stack of symmetric matrices (A(V) is one
-  einsum -> MXU).
+  einsum).
 - ``A='diag'``: the diagonal constraint diag(X) = b (m = n), the
   max-cut / Goemans-Williamson relaxation.  Then G = I and the affine
   projection is "overwrite the diagonal with b" — O(n) per iteration

@@ -11,9 +11,9 @@ xminTotalVariation (getProxOps.m:1044-1048).
 x-update:  (I + rho D^T D)^{-1} (s + rho D^T (z - u))
 z-update:  soft_threshold(u + D x, lambda / rho)
 
-TPU design: D and D^T apply matrix-free in O(n) (linop.DiffOp); the
+Design: D and D^T apply matrix-free in O(n) (linop.DiffOp); the
 tridiagonal system (I + rho D^T D) is diagonalized once at setup (dense
-eigh of the structured Gram), so each x-update is MXU matmul work valid
+eigh of the structured Gram), so each x-update is matmul work valid
 for any runtime rho.  The reference instead sparse-backslashes the system
 every iteration (getProxOps.m:1048).
 """
@@ -69,14 +69,12 @@ def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto
     iteration); 'cr' precomputes a HYBRID cyclic-reduction elimination
     of the fixed tridiagonal system — masked full-length levels down to
     a <= 1023-size reduced system finished by one dense-inverse GEMV
-    (ops/tridiag.CyclicReductionSolver dense_cutoff; measured +22% over
-    the all-levels masked form at n = 65536 on v5e, within noise at
-    n = 8192, so the tail is gated on n > 16384 — below that 'cr' IS
-    the masked form); 'cr_masked'
+    (ops/tridiag.CyclicReductionSolver dense_cutoff; the tail is gated
+    on n > 16384 — below that 'cr' IS the masked form); 'cr_masked'
     runs every level masked; 'cr_packed' is the per-level packed layout
-    (asymptotically fewer bytes, measured 4.8-16x SLOWER on TPU —
-    retained as the documented negative result); 'auto' picks 'cr' for
-    n > 2048 with static rho.
+    (asymptotically fewer bytes); 'auto' picks 'cr' for n > 2048 with
+    static rho.  Which of these wins on the GPU is not yet measured
+    (ROADMAP §3.4).
     """
     s = jnp.asarray(s)
     n = s.shape[0]
@@ -105,14 +103,11 @@ def make_prox_ops(s, lam, config: ADMMConfig = ADMMConfig(), solver: str = "auto
         elif solver == "cr_masked":
             data["cr"] = CyclicReductionSolver.from_tridiag(*args)
         else:
-            # Hybrid dense tail only where the saved deep sweeps beat
-            # its fixed gather/scatter+GEMV cost.  Single signal: +22%
-            # at n=65536, within noise / slightly negative at n=8192
-            # (round-4 probe), so gate on depth.  BATCHED lanes amortize
-            # the tail (the gather feeds one (B, m) x (m, m) GEMM) and
-            # multiply the per-level stream cost by B, so the hybrid
-            # wins much earlier: +52% at B=128, n=8192, exact to 7e-8
-            # (tv_batch probe) — always on for the batched path.
+            # Hybrid dense tail only where the saved deep sweeps can
+            # beat its fixed gather/scatter+GEMV cost: deep single
+            # signals, and BATCHED lanes, which amortize the tail (the
+            # gather feeds one (B, m) x (m, m) GEMM) and multiply the
+            # per-level stream cost by B.  Exact to 7e-8 in f32.
             cutoff = 1023 if (batched or n > 16384) else None
             data["cr"] = CyclicReductionSolver.from_tridiag(
                 *args, dense_cutoff=cutoff)
@@ -166,9 +161,8 @@ def totalvariation(s=None, lam=None, config: ADMMConfig = ADMMConfig(), *,
     if resolved == "auto":
         resolved = "cr" if (n > 2048 and not config.dynamic_rho) else "dense"
     # The dense (eig-folded GEMV) body unrolls like any GEMV solver; the
-    # cyclic-reduction body is a log(n) sweep of small kernels and
-    # measured 45% SLOWER at K=16 than the balanced default (round-3
-    # matrix).
+    # cyclic-reduction body is a log(n) sweep of small kernels and keeps
+    # the balanced default.
     config = merge_config(config, {},
                           body="gemv" if resolved == "dense" else "default")
     # Pass the RESOLVED path so this choice and make_prox_ops's cannot

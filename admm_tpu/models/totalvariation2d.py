@@ -1,4 +1,4 @@
-"""2-D (image) total variation denoising — TPU-native EXTENSION.
+"""2-D (image) total variation denoising — EXTENSION.
 
 No reference analog (the reference's TV is 1-D, solvers/totalvariation.m);
 this extends the same splitting to images with anisotropic TV:
@@ -15,10 +15,10 @@ x-update:  (I + rho (D_r^T D_r (+) D_c^T D_c)) X = S + rho A^T (Z - U)
            — a Sylvester-structured system diagonalized by the two SMALL
            1-D eigenbases:  X = U_r [ (U_r^T B U_c) / (1 + rho (wr_i +
            wc_j)) ] U_cT.  Per-iteration work is four dense matmuls
-           (MXU) of shapes (m,m)x(m,n) and (m,n)x(n,n) — no mn-by-mn
+           of shapes (m,m)x(m,n) and (m,n)x(n,n) — no mn-by-mn
            system is ever formed, and the solve is valid for ANY runtime
            rho (rbadaptive-safe; there are no config-dependent paths).
-z-update:  soft_threshold(A X + U, lambda / rho)   (elementwise, VPU)
+z-update:  soft_threshold(A X + U, lambda / rho)   (elementwise)
 """
 
 from __future__ import annotations

@@ -16,8 +16,8 @@ Reference: solvers/unwrappedadmm.m.  Driver defaults preserved from
 unwrappedadmm.m:81-92: A = D, B = -1, c = 0, random x0/z0/u0,
 stopcond = 'both', nodualerror = 1.
 
-TPU design: D^+ is materialized once (pinv at setup, as the reference
-does); every x-update is then a single n-by-m GEMV on the MXU.
+Design: D^+ is materialized once (pinv at setup, as the reference
+does); every x-update is then a single n-by-m GEMV.
 """
 
 from __future__ import annotations

@@ -1,12 +1,12 @@
 """Shared proximal-operator primitives and linear-solve caches.
 
-TPU-native analog of the reference's getProxOps.m helper layer: the
+JAX analog of the reference's getProxOps.m helper layer: the
 soft-threshold family (getProxOps.m:933-938), hinge / 0-1 / Huber proxes
 (getProxOps.m:1084-1180, 1529-1539), projections (getProxOps.m:1378-1382,
 1470-1474), and rho-parameterized SPD solves that replace the reference's
 rho-keyed Cholesky caches (getProxOps.m:968-971, 1400-1405, 1444-1453) with
 one-time symmetric eigendecompositions whose per-iteration application is
-pure MXU matmul work.
+pure matmul work.
 """
 
 from .prox import (

@@ -1,4 +1,4 @@
-"""Matmul-only matrix functions for the MXU.
+"""Matmul-only matrix functions.
 
 The covariance-selection x-prox is a spectral function of the symmetric
 matrix W = rho*(Z - U) - S (reference xminCovarianceSelection,
@@ -8,10 +8,10 @@ getProxOps.m:1487-1496):
               = (W + sqrt(W^2 + 4 rho I)) / (2 rho)
 
 The reference (and our default path, ops/prox.py:covsel_eig_prox)
-evaluates it by full eigendecomposition.  On TPU, `eigh` of a modest
-n-by-n matrix is latency-bound scalar-heavy work, while the equivalent
-matrix square root is computable with *nothing but n^3 matmuls* via the
-coupled Newton-Schulz iteration — exactly what the MXU is built for:
+evaluates it by full eigendecomposition.  `eigh` of a modest n-by-n
+matrix is latency-bound, scalar-heavy work, while the equivalent matrix
+square root is computable with *nothing but n^3 matmuls* via the
+coupled Newton-Schulz iteration — what matrix units are built for:
 
     A = W^2 + 4 rho I   (SPD: every eigenvalue >= 4 rho)
     Y_0 = A / c, Z_0 = I         with  c >= lambda_max(A)
@@ -53,16 +53,14 @@ def ns_sqrtm(A, iters: int = 20, coarse: int = 0, correct: int = 0):
     Newton-Schulz — matmuls only, no factorization.
 
     Supports leading batch dimensions.  ``iters`` is static (the loop is
-    unrolled at trace time into 2 GEMMs + 1 batched GEMM per step, all
-    MXU work).  Use iters ~ log(kappa(A))/log(2.25) + 5; the default 20
+    unrolled at trace time into 2 GEMMs + 1 batched GEMM per step).  Use iters ~ log(kappa(A))/log(2.25) + 5; the default 20
     covers kappa up to ~1e7 at f64 machine precision.
 
-    ``coarse``: run the FIRST ``coarse`` iterations with the TPU's
-    default (bf16-pass) matmul mode and only the remaining ones at the
-    ambient (full) precision.  MEASURED CAVEAT (v5e, n = 512-1024,
-    experiments/covsel_tail_probe.py): trailing full-precision NS steps
-    do NOT square the coarse noise away (coarse-11 + 3 full landed at
-    2.6e-3 rel-F vs 3.2e-3 all-coarse) — bf16 noise drifts the coupled
+    ``coarse``: run the FIRST ``coarse`` iterations at the default
+    matmul precision (TF32 on the GPU) and only the remaining ones at the
+    ambient (full) precision.  CAVEAT (n = 512-1024): trailing
+    full-precision NS steps do NOT square the coarse noise away (they
+    left rel-F at the all-coarse level) — coarse noise drifts the coupled
     (Y, Z) pair off its invariant manifold, in exactly the directions
     the iteration does not contract (the same instability that forbids
     the Z <- ZT rearrangement).  Use ``correct`` to recover accuracy.
@@ -71,9 +69,9 @@ def ns_sqrtm(A, iters: int = 20, coarse: int = 0, correct: int = 0):
     corrections at the ambient precision — the first-order Sylvester
     update dS S + S dS = A - S^2 approximated via the computed inverse
     root, S += 0.5 (A - S^2) Z/sqrt(c).  Unlike trailing NS steps this
-    contracts the actual residual regardless of manifold drift: bf16 NS
-    noise (~3e-3) drops to ~1e-5 per correction step at a cost of ~3
-    matmuls.  The fast covsel recipe is coarse=iters, correct=2.
+    contracts the actual residual regardless of manifold drift: coarse NS
+    noise drops by orders of magnitude per correction step at a cost of
+    ~3 matmuls.  The fast covsel recipe is coarse=iters, correct=2.
     """
     n = A.shape[-1]
     I = jnp.eye(n, dtype=A.dtype)
@@ -117,12 +115,13 @@ def covsel_ns_prox(W, rho, iters: int = 20, coarse: int = 0,
     (reference getProxOps.m:1487-1496) but evaluated as
     (W + sqrt(W^2 + 4 rho w I)) / (2 rho) with ns_sqrtm — pure matmul
     work, no eigendecomposition inside the ADMM loop.  ``coarse`` (see
-    ns_sqrtm) runs that many leading square-root steps in bf16-pass
-    mode; the W^2 forming A stays at the ambient full precision — a
-    coarse A would bound the result's accuracy at bf16 no matter how
-    the iteration refines.  ``correct`` residual-correction steps at
-    full precision recover the accuracy the coarse phase loses (see
-    ns_sqrtm; the measured fast recipe is coarse=iters, correct=2).
+    ns_sqrtm) runs that many leading square-root steps at the default
+    matmul precision (TF32 on the GPU); the W^2 forming A stays at the
+    ambient full precision — a coarse A would bound the result's
+    accuracy no matter how the iteration refines.  ``correct``
+    residual-correction steps at full precision recover the accuracy the
+    coarse phase loses (see ns_sqrtm; the fast recipe is coarse=iters,
+    correct=2).
 
     ``weight`` (w above, default 1) is the logdet coefficient — the
     consensus covsel split's per-shard prox of tr(S_i X) - w logdet X
@@ -141,7 +140,7 @@ def psd_project_ns(W, iters: int = 24, coarse: int = 0, correct: int = 0,
     """PSD-cone projection via Newton-Schulz — matmuls only, no eigh.
 
     Evaluates max(W, 0) spectrally as (W + |W|) / 2 with
-    |W| = sqrt(W^2 + delta^2 I) (ns_sqrtm).  TPU performance mode for
+    |W| = sqrt(W^2 + delta^2 I) (ns_sqrtm).  Matmul-only mode for
     the SDP z-prox (models/sdp.py), the same swap covsel makes with
     covsel_ns_prox.
 
@@ -158,13 +157,13 @@ def psd_project_ns(W, iters: int = 24, coarse: int = 0, correct: int = 0,
     eigh path (ops/prox.py:psd_project) when the active spectrum
     crosses zero slowly.
 
-    MEASURED (v5e, batched diag-constrained SDP): ``correct`` > 0 with
+    Batched diag-constrained SDP: ``correct`` > 0 with
     ``delta`` = 0 DIVERGES — the residual correction applies the
     coupled inverse root Z ~ S^{-1}, which blows up on the
     near-singular W^2 (covsel never sees this: its argument is bounded
     below by 4 rho).  With corrections the root must be regularized
     (``delta`` > 0); the plain full-precision NS needs neither and is
-    the default SDP performance mode.
+    the default SDP matmul-only mode.
     """
     Ws = 0.5 * (W + jnp.swapaxes(W, -1, -2))
     n = Ws.shape[-1]

@@ -1,8 +1,9 @@
-"""Elementwise proximal operators (VPU-friendly, fully fusable by XLA).
+"""Elementwise proximal operators (fully fusable by XLA).
 
 Each function cites the reference construction it reproduces.  All are pure
-jnp; a fused Pallas variant of the hot soft-threshold + dual-update path
-lives in ops/kernels.py and is used by the engine's performance mode.
+jnp: XLA fuses the soft-threshold + dual-update tail of an iteration with
+the residual norms next to it (a hand-written kernel for that tail measured
+no faster end to end on the H100; PERF.md).
 """
 
 from __future__ import annotations
@@ -43,7 +44,7 @@ def block_soft_threshold(v, t, gid, num_groups):
 
     The prox of ``sum_g t_g ||v_g||_2`` (group lasso).  ``t`` is scalar or
     per-group.  Segment reductions keep the shapes static, so the whole op
-    stays one fused VPU pass under jit.  Beyond the reference (its
+    stays one fused elementwise pass under jit.  Beyond the reference (its
     shrinkage family stops at elementwise soft-thresholding,
     getProxOps.m:933-938).
     """

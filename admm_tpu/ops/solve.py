@@ -3,14 +3,14 @@
 The reference caches Cholesky/LU factorizations keyed on "has rho changed"
 (getProxOps.m:968-971 model; 1400-1405, 1444-1453 QP; solvers/lasso.m:160-177)
 and lazily re-factorizes inside the iteration.  Under jit that pattern is
-hostile (data-dependent refactorization, triangular solves serialize badly on
-TPU).  The TPU-native design folds rho analytically:
+hostile (data-dependent refactorization, serial triangular solves).  This
+design folds rho analytically:
 
     (M + rho I)^{-1} b  =  V ((V^T b) / (w + rho)),   M = V diag(w) V^T
 
 with the symmetric eigendecomposition computed ONCE at setup.  Each
-per-iteration application is two dense matmuls (MXU systolic work) plus an
-elementwise scale (VPU), is valid for *any* runtime rho (so adaptive-rho
+per-iteration application is two dense matmuls plus an elementwise
+scale, is valid for *any* runtime rho (so adaptive-rho
 needs no refactorization), batches under vmap, and shards cleanly.
 """
 
@@ -165,7 +165,7 @@ class kkt_eq_solver:
         S(rho) y = D Minv b1 - b2,  S(rho) = D Minv D^T
 
     With G = D V cached, S(rho) = G diag(1/(w+rho)) G^T is formed by one
-    m-by-n matmul pair (MXU) and factorized with an m-by-m Cholesky per
+    m-by-n matmul pair and factorized with an m-by-m Cholesky per
     call.  For LP (P = 0), S(rho) = (D D^T)/... still depends on rho only
     elementwise through diag, so the same path applies.
     """

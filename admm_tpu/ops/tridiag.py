@@ -2,10 +2,11 @@
 
 The TV x-update solves the FIXED tridiagonal system (I + rho D^T D) x = b
 every iteration (getProxOps.m:1044-1048).  A dense inverse costs O(n^2)
-per iteration; sequential Thomas elimination is O(n) but serializes (and
-XLA's tridiagonal_solve lowers to a scan that is pathologically slow on
-TPU).  Cyclic reduction is the TPU-native answer: log2(n) levels of fully
-vectorized elementwise work (VPU), O(n log n) total.
+per iteration; sequential Thomas elimination is O(n) but serializes.
+Cyclic reduction trades that for log2(n) levels of fully vectorized
+elementwise work, O(n log n) total.  (On the GPU,
+``lax.linalg.tridiagonal_solve`` lowers to cuSPARSE; which wins on the
+TV cells is not yet measured, ROADMAP §3.4.)
 
 Because the matrix is fixed, the elimination coefficients (alpha, beta,
 pivots) for every level are computed ONCE at setup on the host; each
@@ -43,17 +44,15 @@ class CyclicReductionSolver:
 
     ``dense_cutoff`` (from_tridiag) enables the HYBRID scheme: run only
     the first k masked levels (the large strata, where the full-length
-    vectorized form is what the TPU wants) and solve the level-k reduced
+    vectorized form is efficient) and solve the level-k reduced
     system — size 2^(L-k) - 1 <= dense_cutoff — with one precomputed
     dense inverse apply (a single small GEMV).  The deep masked levels
     each stream full-length arrays to update a vanishing stratum, so at
     n = 65536 they are pure waste; cutting to a 1023-size dense tail
-    removes 20 of 34 level sweeps for a measured +22%
-    (experiments/tv_cr_packed_probe.py round 4).  A fully PACKED
-    per-level layout (PackedCyclicReductionSolver below) is the
-    asymptotically-optimal-bytes answer and measured 4.8-16x SLOWER on
-    v5e — small misaligned strided ops lose to big aligned sweeps —
-    so the hybrid keeps the masked form exactly where it is strong.
+    removes 20 of 34 level sweeps.  A fully PACKED per-level layout
+    (PackedCyclicReductionSolver below) is the asymptotically-optimal-
+    bytes answer, built of small strided operations instead of big
+    aligned sweeps.
     """
 
     def __init__(self, alphas, betas, a_lv, c_lv, d_lv, masks_f, masks_b, n,
@@ -148,7 +147,7 @@ class CyclicReductionSolver:
             Tinv = jnp.asarray(np.linalg.inv(Tk))
 
         # Precompute in f64 on the host; store at the platform's widest
-        # available float (f64 under x64 on CPU, f32 on TPU).
+        # available float (f64 under x64, f32 otherwise).
         pack = lambda arrs: (jnp.asarray(np.stack(arrs)) if arrs
                              else jnp.zeros((0, N)))
         packb = lambda arrs: (jnp.asarray(np.stack(arrs)) if arrs
@@ -222,7 +221,7 @@ class PackedCyclicReductionSolver:
     stratum.  This variant stores each level's coefficients packed to its
     stratum, so level l moves 2^(L-l) floats and the whole solve streams
     ~4 N floats total: the classic even/odd CR recursion, laid out for
-    the VPU with static shapes and no gathers (stride-2 slices and an
+    elementwise work with static shapes and no gathers (stride-2 slices and an
     interleaving reshape per level).
 
     Derivation (sizes exact for N = 2^L - 1, identity-padded): in packed

@@ -1,13 +1,13 @@
 """Distributed execution over a jax.sharding Mesh.
 
-TPU-native re-design of the reference's MATLAB Parallel Computing Toolbox
+A compiled re-design of the reference's MATLAB Parallel Computing Toolbox
 layer (gcp/parfor; reference admm.m:343-467, getProxOps.m:367-442,
 1217-1343, solvers/unwrappedadmm.m:96-141).  The reference crosses the
 client->worker process boundary twice per prox per iteration (broadcast +
 gather); here each distributed solver is ONE compiled XLA program per
 solve — state lives sharded across devices, and the reference's
-broadcast/gather/all-reduce patterns become psum/pmean collectives over
-ICI (multi-host: DCN via jax.distributed).
+broadcast/gather/all-reduce patterns become psum/pmean collectives, which
+XLA hands to NCCL between GPUs (multi-host: jax.distributed).
 
 Three distributed forms, matching SURVEY.md section 2.7:
 

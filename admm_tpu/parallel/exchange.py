@@ -56,7 +56,7 @@ Variants (engine parity; the other two paradigms already carry them):
     every variant trajectory bit-for-bit up to reduction order
     (tests/test_exchange.py::TestExchangeVariants).
 
-TPU design: per-agent proxes are stacked (W, n) arrays sharded over the
+Design: per-agent proxes are stacked (W, n) arrays sharded over the
 mesh axis (GSPMD, like parallel/consensus.py); the per-iteration
 collective payload is the n floats of x̄ — independent of each agent's
 data size.  The whole solve is one jitted lax.while_loop with the
@@ -77,7 +77,7 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import ADMMConfig, resolve_unroll
-from ..engine import (_with_matmul_precision, fast_update, freeze_helpers,
+from ..engine import (_highest_precision, fast_update, freeze_helpers,
                       residual_balance_factor, unrolled_body)
 from ..results import ADMMResults
 from .mesh import make_mesh
@@ -383,7 +383,7 @@ def _make_exchange_run(local_prox, config: ADMMConfig, W: int, n: int):
 @functools.lru_cache(maxsize=32)
 def _cached_exchange_runner(local_prox, config: ADMMConfig, W: int, n: int):
     run = _make_exchange_run(local_prox, config, W, n)
-    return jax.jit(_with_matmul_precision(run, config.matmul_precision))
+    return jax.jit(_highest_precision(run))
 
 
 def exchange_admm(

@@ -1,13 +1,15 @@
 """Multi-host cluster initialization.
 
 The reference's communication backend is a single-machine MATLAB worker
-pool (gcp; admm.m:347-356).  The TPU-native equivalent for scaling past
-one host is jax.distributed: every host calls ``initialize_cluster()``
-before touching devices, after which ``jax.devices()`` spans the whole
-pod slice and the distributed solvers in this package (consensus,
-transpose reduction, sliced prox) work unchanged — their meshes simply
-cover more devices, with collectives riding ICI within a slice and DCN
-across hosts.
+pool (gcp; admm.m:347-356).  One process drives every GPU of its host:
+the distributed solvers' collectives become NCCL all-reduces over the
+host's NVLink, which joins every card to every other at the same rate,
+so a mesh is shaped by the algorithm alone (shards, or lanes x shards).
+Past one host the equivalent is jax.distributed: every process calls
+``initialize_cluster()`` before touching devices, after which
+``jax.devices()`` spans all hosts and the distributed solvers in this
+package (consensus, transpose reduction, sliced prox) work unchanged —
+their meshes simply cover more devices.
 """
 
 from __future__ import annotations
@@ -22,11 +24,12 @@ def initialize_cluster(
     num_processes: Optional[int] = None,
     process_id: Optional[int] = None,
 ) -> int:
-    """Initialize jax.distributed (no-op on a single host or under a TPU
-    runtime that auto-configures).  Returns the global device count.
+    """Initialize jax.distributed (a no-op for one process, which already
+    sees every GPU of its host).  Returns the global device count.
 
-    On Cloud TPU pods the arguments are auto-detected from the
-    environment; pass them explicitly for manual clusters.
+    Nothing on a plain GPU host describes the cluster to JAX: pass the
+    coordinator address (``host:port``), the process count and this
+    process's id explicitly.
     """
     if num_processes is not None and num_processes > 1 or coordinator_address:
         jax.distributed.initialize(

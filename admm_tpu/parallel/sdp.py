@@ -108,8 +108,7 @@ def sdp_sharded(
     with A's HBM and the per-iteration A-contractions divided W ways.
 
     ``prox_method``/``ns_*`` select the PSD projection exactly as in
-    the serial wrapper ('ns' = the matmul-only Newton-Schulz tier,
-    19.1x the batched eigh on v5e — BENCH_MATRIX).  ``nshards``
+    the serial wrapper ('ns' = the matmul-only Newton-Schulz tier).  ``nshards``
     defaults to the mesh size; m is zero-padded up to a shard multiple
     (padded constraints are exact no-ops).
     """

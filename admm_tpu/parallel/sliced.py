@@ -8,7 +8,7 @@ validated and worker-balanced by errorcheck('slices') -> slicemaker
 (errorcheck.m:216-267), and 'both' takes a 2-element cell
 (slicesx, slicesz) (admm.m:360-383).
 
-TPU design: the same contract — a per-slice prox
+Design: the same contract — a per-slice prox
 ``prox_slice(x, z, u, rho, k) -> slice_k of the result`` — is compiled
 into a single shard_map over a 1-D mesh: every device holds the full
 replicated iterates (the reference's broadcast, now free: state already
@@ -105,7 +105,7 @@ def _cached_sliced_prox(prox_slice, slices, mesh):
             # one device computes one slice, so the count must fit the
             # mesh.  slices=0 (even split) always fits.
             raise ValueError(
-                f"{len(lengths)} slices > {W} mesh devices: on TPU each "
+                f"{len(lengths)} slices > {W} mesh devices: each "
                 "device computes exactly one slice per step. Pass a "
                 f"vector of at most {W} lengths (slicemaker(0, n, {W}) "
                 "builds a mesh-balanced even split)"
@@ -165,7 +165,7 @@ def make_parallel_proxes(
     go through ``slicemaker`` (errorcheck.m:216-267): 0 balances evenly
     over the mesh device count; a scalar block size k or an explicit
     length vector is used as-is and must yield at most one slice per
-    device (each TPU device computes exactly one slice — unlike the
+    device (each device computes exactly one slice — unlike the
     reference's parfor queue, which accepts any slice count).
     """
     if parallel not in ("xminf", "zming", "both"):

@@ -10,8 +10,8 @@ across workers; each iteration does
     z_i = prox_g(D_i x + u_i, ...) [local]
     u_i = u_i + D_i x - z_i        [local]
 
-TPU design: one jitted XLA program over row-sharded (W, m/W, ...) arrays;
-the reduce-sum is a psum over ICI of an n-vector per iteration, and the
+Design: one jitted XLA program over row-sharded (W, m/W, ...) arrays;
+the reduce-sum is a psum of an n-vector per iteration, and the
 replicated solve is a single n-by-n GEMV against the precomputed W^{-1}
 (the reference solves W \\ d every iteration, unwrappedadmm.m:139).
 
@@ -46,7 +46,7 @@ from jax import lax
 from jax.sharding import Mesh, NamedSharding, PartitionSpec as P
 
 from ..config import ADMMConfig, resolve_unroll
-from ..engine import (_with_matmul_precision, adaptive_rho_update,
+from ..engine import (_highest_precision, adaptive_rho_update,
                       fast_update, freeze_helpers, residual_balance_factor,
                       unrolled_body)
 from ..ops.prox import hinge_prox, zero_one_prox
@@ -57,7 +57,7 @@ from .mesh import make_mesh, pad_rows, shard_rows
 @jax.jit
 def _gram_pinv(Di):
     """One-time gram reduction: W_g = sum_i D_i^T D_i
-    (unwrappedadmm.m:96-123) — psum of per-shard MXU grams — then a
+    (unwrappedadmm.m:96-123) — psum of per-shard grams — then a
     replicated pseudo-inverse (pinv, matching the serial driver's
     pinv(D): rank-deficient or underdetermined D degrades gracefully).
     Module-level jit so repeat solves reuse the compiled setup."""
@@ -512,7 +512,7 @@ def _cached_unwrapped_runner(prox_g_shard, obj_shard, obj_global,
     """Cross-call compile cache keyed on (prox/objective functions, config,
     true row count) - the same caching contract as the core engine."""
     run = _make_unwrapped_run(prox_g_shard, obj_shard, obj_global, config, m)
-    return jax.jit(_with_matmul_precision(run, config.matmul_precision))
+    return jax.jit(_highest_precision(run))
 
 
 @functools.lru_cache(maxsize=32)
@@ -527,7 +527,7 @@ def _cached_unwrapped_batch_runner(prox_g_shard, obj_shard, obj_global,
     None = shared)."""
     run = _make_unwrapped_run(prox_g_shard, obj_shard, obj_global, config, m)
     vrun = jax.vmap(run, in_axes=(None, None, 0, 0, 0, None, aux_axes))
-    return jax.jit(_with_matmul_precision(vrun, config.matmul_precision))
+    return jax.jit(_highest_precision(vrun))
 
 
 # Module-level SVM shard functions (caching contract: per-row C rides in
@@ -595,8 +595,8 @@ def svm_batch_sharded(
     (label rows ``ells`` of shape (B, m), shared data matrix ``D``) each
     trained by row-sharded transpose-reduction ADMM, in ONE GSPMD
     program — the other composition of the library's two data-parallel
-    axes (mnistsvm's per-digit loop, examples/mnistsvm.m:89-102, at pod
-    layout; see parallel.consensus.consensus_lasso_batch for the
+    axes (mnistsvm's per-digit loop, examples/mnistsvm.m:89-102, over
+    several cards; see parallel.consensus.consensus_lasso_batch for the
     consensus counterpart).
 
     Lanes differ only in labels and state: the per-shard data blocks

@@ -1,6 +1,6 @@
 """Randomized correctness/scaling test harness.
 
-TPU-native analog of the reference's testers/ directory (SURVEY.md
+JAX analog of the reference's testers/ directory (SURVEY.md
 sections 2.5, 4): per-problem randomized oracle testers with the
 reference signature ``<name>test(seed, rows, cols, errtol, quiet,
 options)`` returning (results, test) with pass/fail + reason, plus the

@@ -312,7 +312,7 @@ def covarianceselectiontest(seed=0, rows=256, cols=32, errtol=1e-3, quiet=True,
     (testers/covarianceselectiontest.m:112-154).
 
     ``prox_method`` selects the x-prox evaluation ('eigh' exact /
-    'ns' Newton-Schulz TPU mode) so the on-device accuracy sweep can
+    'ns' Newton-Schulz matmul-only mode) so the on-device accuracy sweep can
     certify both."""
     cfg = merge_config(config, dict(
         objevals=overrides.pop("objevals", True),

@@ -1,6 +1,6 @@
 """Utilities: input validation and result reporting.
 
-TPU-native analog of the reference's root-level utilities
+JAX analog of the reference's root-level utilities
 (errorcheck.m, showresults.m; SURVEY.md section 2.4).  The reference's
 setuppaths.m / removepaths.m session-path management has no analog — a
 Python package imports without path mutation.

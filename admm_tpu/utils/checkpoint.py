@@ -54,7 +54,7 @@ def load_state(path: Union[str, Path]) -> dict:
 def save_state_orbax(results: ADMMResults, path: Union[str, Path]) -> None:
     """Orbax backend: async-capable and SHARDED-array aware — the right
     choice for distributed solver state (e.g. consensus xi/ui living
-    sharded across a pod; the npz backend would force a host gather).
+    sharded across several devices; the npz backend would force a host gather).
     Saves the same fields as ``save_state`` plus any sharded per-shard
     state found in ``results.extra``."""
     import orbax.checkpoint as ocp

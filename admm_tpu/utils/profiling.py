@@ -2,7 +2,7 @@
 
 The reference's 'profiler' is tic/toc plus the full per-iteration history
 (SURVEY.md section 5).  Those are preserved in ADMMResults; this module
-adds the TPU-level equivalent: jax.profiler traces viewable in
+adds the device-level equivalent: jax.profiler traces viewable in
 TensorBoard/Perfetto, and a simple steady-state iteration timer.
 """
 

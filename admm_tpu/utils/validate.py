@@ -4,7 +4,7 @@ Mirrors the reference's errorcheck.m: a check-by-name validator with
 auto-coercion (transpose row vectors, strip imaginary parts,
 errorcheck.m:35-135) and the ``slicemaker`` worker-balancing rule
 (errorcheck.m:216-267).  Host-side only — runs at solver setup, never
-inside a traced program (trace-time shape/dtype checks are the TPU analog
+inside a traced program (trace-time shape/dtype checks are the compiled analog
 of runtime sanitizers, SURVEY.md section 5)."""
 
 from __future__ import annotations

@@ -5,7 +5,7 @@ The matrix-tier families are the ones that actually strain a chip
 (an SDP's constraint stack is m x n^2 floats; a graphical lasso's
 spectral prox is n^3 work).  This demo runs both distributed forms on
 whatever mesh is attached (8 virtual CPU devices under the test
-suite, real chips on a pod):
+suite, the GPUs of a host):
 
 1. ``sdp_sharded`` — a standard-form SDP whose (m, n, n) constraint
    stack is sharded over the mesh (local einsums + one m-float

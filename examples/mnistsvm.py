@@ -171,7 +171,7 @@ def train_all_digits(D, labels, digits, C=0.5, rho=1.0, maxiters=500,
     Pass a 2-D ``mesh`` (parallel.make_mesh2d) to train over the
     composed lanes-x-row-shards layout instead (svm_batch_sharded):
     each classifier's rows sharded ``nshards`` ways, classifiers spread
-    over the lane axis — the pod configuration of this example."""
+    over the lane axis — the multi-card configuration of this example."""
     from admm_tpu import ADMMConfig, svm_batch
 
     ells = np.stack([np.where(labels == d, 1.0, -1.0) for d in digits])

@@ -1,5 +1,5 @@
 """Receding-horizon (MPC-style) batched QP with warm starts —
-TPU-native EXTENSION.
+EXTENSION.
 
 No reference analog (the reference solves one program per call); this
 demonstrates the framework pattern the `qp_batch` solver exists for:

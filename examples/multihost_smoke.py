@@ -1,6 +1,6 @@
 """Two-process jax.distributed smoke test (multi-controller, CPU).
 
-Validates the multi-host wiring of parallel/multihost.py without a pod:
+Validates the multi-host wiring of parallel/multihost.py on one host:
 each process initializes jax.distributed against a local coordinator,
 contributes its virtual CPU devices to the global mesh, and the processes
 jointly run a global psum — the collective pattern every distributed

@@ -1,6 +1,6 @@
 """Anderson acceleration (ADMMConfig.anderson).
 
-Safeguarded type-II AA on the ADMM fixed-point map — a TPU-era
+Safeguarded type-II AA on the ADMM fixed-point map — a
 convergence lever with no reference analog (the reference's only
 acceleration is the fast/accelerated momentum, admm.m:563-600).  The
 oracles below pin: (a) AA reaches the same optimum in strictly fewer

@@ -103,7 +103,7 @@ def test_covsel_solver_ns_matches_eigh():
 
 def test_covsel_ns_prox_f32_accuracy():
     """f32 NS prox stays within f32-eigh-level accuracy of the f64
-    reference — the on-device precision story for the TPU mode."""
+    reference — the precision story of the matmul-only mode."""
     rng = np.random.default_rng(11)
     M = rng.standard_normal((64, 64)) * 5.0
     W64 = jnp.asarray((M + M.T) / 2, dtype=jnp.float64)

@@ -207,28 +207,6 @@ def test_wvals_trace():
     np.testing.assert_allclose(w[k], expect, rtol=1e-12)
 
 
-def test_fused_zu_rejects_non_identity_splitting():
-    """hooks.fused_zu assumes A=1, B=-1, c=0; any other splitting must be
-    refused up front rather than silently computing a wrong dual update
-    (the kernel's u-update is u + x - z)."""
-
-    def fused(x, u, rho):
-        return x, u
-
-    def pf(x, z, u, rho):
-        return x
-
-    def pg(x, z, u, rho):
-        return z
-
-    for bad in (dict(A=2.0), dict(B=1.0), dict(c=np.ones(4))):
-        kw = dict(A=1.0, B=-1.0, c=0.0)
-        kw.update(bad)
-        with pytest.raises(ValueError, match="fused_zu"):
-            admm(pf, pg, ADMMConfig(maxiters=2), m=4,
-                 hooks=Hooks(fused_zu=fused), **kw)
-
-
 @pytest.mark.parametrize("kw", [dict(), dict(fast=True, fasttype="weak"),
                                 dict(relax=1.5), dict(stopcond="both",
                                                       convtest=True)])

@@ -1,24 +1,6 @@
-"""Pallas kernel + solver-cache numerics (ops/kernels.py, ops/solve.py)."""
+"""Solver-cache numerics (ops/solve.py)."""
 
 import numpy as np
-import pytest
-
-from admm_tpu.ops.kernels import _fused_jnp, fused_soft_threshold_dual
-
-
-@pytest.mark.parametrize("n", [64, 1000, 8192, 70000])
-def test_fused_kernel_matches_reference(n):
-    import jax.numpy as jnp
-
-    rng = np.random.default_rng(0)
-    x = jnp.asarray(rng.standard_normal(n))
-    u = jnp.asarray(rng.standard_normal(n))
-    t = 0.37
-    # force_pallas runs the kernel in interpret mode on CPU.
-    z_k, u_k = fused_soft_threshold_dual(x, u, t, force_pallas=True)
-    z_r, u_r = _fused_jnp(x, u, t)
-    np.testing.assert_allclose(np.asarray(z_k), np.asarray(z_r), atol=1e-12)
-    np.testing.assert_allclose(np.asarray(u_k), np.asarray(u_r), atol=1e-12)
 
 
 def test_fat_shift_solver_matches_direct():

@@ -149,8 +149,8 @@ def test_logreg_batch_matches_solo_lanes():
 
 
 def test_logreg_newton_cg_matches_dense_newton():
-    """The matrix-free Jacobi-PCG Newton x-prox (the batched TPU
-    performance mode) must land on the dense-Hessian path's optimum —
+    """The matrix-free Jacobi-PCG Newton x-prox (the batched lanes'
+    default) must land on the dense-Hessian path's optimum —
     same ADMM trajectory to solver tolerance, including the step
     count (the CG solve reaches Newton-direction accuracy at the
     default 20 iterations on this conditioning)."""

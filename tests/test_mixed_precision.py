@@ -48,12 +48,11 @@ def test_bf16_warmstart_plus_polish_recovers_accuracy():
     assert gap_polished <= max(0.2 * gap_coarse, 1e-7)
 
 
-def test_matmul_precision_default_reaches_serial_loop():
-    """ADMMConfig(matmul_precision='default') must actually govern the
-    compiled loop even under timed_solver's ambient 'highest' context
-    (the config wraps the trace innermost) — regression guard for the
-    silently-inert-config finding."""
-    from admm_tpu.engine import _with_matmul_precision
+def test_loop_pins_highest_precision():
+    """The compiled loop runs f32 matmuls at full precision even under an
+    ambient lower setting: the engine's wrapper sets 'highest'
+    innermost."""
+    from admm_tpu.engine import _highest_precision
 
     seen = []
 
@@ -67,6 +66,6 @@ def test_matmul_precision_default_reaches_serial_loop():
 
     import jax
 
-    with jax.default_matmul_precision("highest"):
-        _with_matmul_precision(probe, "default")(1.0)
-    assert seen and str(seen[0]) == "default"
+    with jax.default_matmul_precision("default"):
+        _highest_precision(probe)(1.0)
+    assert seen and str(seen[0]) == "highest"

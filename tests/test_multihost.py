@@ -1,7 +1,7 @@
 """Multi-controller (jax.distributed) smoke tests: two OS processes, each
 contributing virtual CPU devices to one global mesh.  Validates that the
 distributed layer's collectives and the consensus solver run across
-process boundaries — the single-host stand-in for a multi-host pod
+process boundaries — the single-host stand-in for a multi-host cluster
 (parallel/multihost.py).
 
 Skip policy: a worker prints a sentinel line immediately after

@@ -1,4 +1,4 @@
-"""Residual-balancing adaptive rho (ADMMConfig.rbadaptive): a TPU
+"""Residual-balancing adaptive rho (ADMMConfig.rbadaptive): an
 addition beyond the reference — Boyd et al. 2011 section 3.4.1 with the
 scaled-dual rescale the reference's experimental mode omits."""
 

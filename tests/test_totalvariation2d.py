@@ -1,4 +1,4 @@
-"""2-D TV denoising (TPU-native extension; models/totalvariation2d.py)."""
+"""2-D TV denoising (extension; models/totalvariation2d.py)."""
 
 import numpy as np
 
